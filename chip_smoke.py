@@ -7,20 +7,35 @@ Phases; any failure raises and the script exits non-zero without a result line:
 
   1. build   -- nvcc compiles every CUDA source of the port for sm_90a, one
                 process per source, all started together.
-  2. kernels -- each kernel against its plain PyTorch version on the card, in
-                float32 (tolerance 1e-5 * max|ref|) and bfloat16 (0.02 *
-                max|ref|), at the training geometry (16, 40, 144, 256), the eval
-                geometry (4, 48, 160, 256), both with max_displacement 20 and
-                stride 2, and an odd case (W not a multiple of the 32-column
-                tile, stride 1). Times are medians of 20 launches, each timed
-                with CUDA events after warm-up.
-  3. main path -- ``unflow_tpu_torch.cli.infer`` with ``--random-init`` on two
+  2. kernels -- each of the six kernels (correlation forward, gradient to f1,
+                gradient to f2; float32 and bfloat16) against its plain PyTorch
+                version on the card (tolerance 1e-5 * max|ref| in float32, 0.02 *
+                max|ref| in bfloat16), at the training geometry (16, 40, 144,
+                256), the eval geometry (4, 48, 160, 256), both with
+                max_displacement 20 and stride 2, and an odd case (W not a
+                multiple of the 32-column tile, stride 1). Times are medians of
+                20 launches, each timed with CUDA events after warm-up. Then the
+                autograd Function over the three kernels against autograd through
+                the plain version, with a non-contiguous cotangent.
+  3. serving path -- ``unflow_tpu_torch.cli.infer`` with ``--random-init`` on two
                 375x1242 frames (configs/kitti_unsup_c.ini: FlowNetC, bf16), then
                 ``Evaluator.predict_batch`` at batch 4 in bf16 and in f32 (TF32
                 off). Each run starts with the launch counts at 0 and must launch
                 its kernel; each flow must be finite and agree with the same
                 weights run through the plain correlation (relative L2 < 2e-2 in
                 bf16, < 1e-4 in f32).
+  4. training path -- ``unflow_tpu_torch.cli.train`` with the same config and
+                ``dataset=synthetic``: 12 steps at 320x1152, batch 8, bf16, which
+                must launch the three bf16 kernels once per step, end with a
+                finite loss and write ``metrics.jsonl``; then one f32 step at
+                batch 2, which must launch the three f32 kernels. Then one train
+                step through the kernels against the same step through the plain
+                correlation (same parameters, batch and seed): loss, grad_norm and
+                the relative L2 of the whole gradient must agree (2e-2 in bf16,
+                1e-4 in f32 with TF32 off: summation order and the atomics of the
+                warp's gradient differ). Last, ``Trainer.run`` on batches that are
+                ready on the host, for the step's own time, its peak memory and a
+                profile of one step.
 
 Prints the GPU's name and power limit first, then a line per check, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -29,6 +44,7 @@ Prints the GPU's name and power limit first, then a line per check, a
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -48,6 +64,28 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # FP32 cores; dense
 REPLACES = {
     "corr_fwd_f32": "unflow_tpu/ops/pallas/correlation.py:96",
     "corr_fwd_bf16": "unflow_tpu/ops/pallas/correlation_mxu.py:187",
+    "corr_bwd_f1_f32": "unflow_tpu/ops/pallas/correlation.py:201",
+    "corr_bwd_f2_f32": "unflow_tpu/ops/pallas/correlation.py:285",
+    "corr_bwd_f1_bf16": "unflow_tpu/ops/pallas/correlation_mxu.py:281",
+    "corr_bwd_f2_bf16": "unflow_tpu/ops/pallas/correlation_mxu.py:389",
+}
+# the geometry each op's reported time is taken at: that of its main path
+REPORT_CASE = {"fwd": "eval", "bwd_f1": "train", "bwd_f2": "train"}
+TRAIN_STEPS = 12
+# profile rows by the words in a kernel's name; the first group that matches
+PROFILE_GROUPS = {
+    "correlation kernels (this repo)": ("corr_fwd_kernel", "corr_bwd_f1_kernel", "corr_bwd_f2_kernel"),
+    "copies": ("Memcpy", "Memset"),
+    "cuDNN convolutions and their layout kernels": (
+        "cudnn", "xmma", "cutlass", "implicit_gemm", "dgrad", "wgrad", "convolve", "nhwc", "nchw",
+        "Nhwc", "Nchw",
+    ),
+    "optimizer": ("Adam", "multi_tensor_apply"),
+    "gathers and scatter-adds (warp, crop)": ("gather", "scatter", "index", "Index"),
+    "census patches (im2col, col2im)": ("im2col", "col2im"),
+    "random numbers": ("distribution", "philox", "Philox", "normal", "uniform"),
+    "reductions": ("reduce_kernel",),
+    "elementwise": ("elementwise",),
 }
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 0.02}
 # (name, (B, H, W, C), max_displacement, stride)
@@ -72,7 +110,9 @@ def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
 
 
 def bound_ms(shape, d: int, dtype: torch.dtype) -> tuple[float, str]:
-    """Least time for the op: f1, f2 read once and the volume written once,
+    """Least time for the forward or either gradient: two maps (B, H, W, C)
+    and one volume (B, H, W, D*D) read or written once each (forward: f1, f2
+    in, volume out; a gradient: cotangent and one map in, one map out),
     against 2*B*H*W*D*D*C operations at the peak rate of the inputs' type."""
     b, h, w, c = shape
     size = torch.finfo(dtype).bits // 8
@@ -82,39 +122,88 @@ def bound_ms(shape, d: int, dtype: torch.dtype) -> tuple[float, str]:
 
 
 def check_kernels() -> dict[str, dict]:
-    from unflow_tpu_torch.ops.correlation import correlation_torch, displacement_count
-    from unflow_tpu_torch.ops.cuda.correlation import KERNELS, SOURCE, correlation_fwd
+    from unflow_tpu_torch.ops.correlation import (
+        correlation_bwd_f1_torch,
+        correlation_bwd_f2_torch,
+        correlation_torch,
+        displacement_count,
+    )
+    from unflow_tpu_torch.ops.cuda.correlation import (
+        KERNELS,
+        correlation_bwd_f1,
+        correlation_bwd_f2,
+        correlation_fwd,
+        kernel_name,
+    )
 
+    # op -> (wrapper, plain version); each takes (a, b, P, s): the forward
+    # (f1, f2), a gradient (cotangent, the other map)
+    ops = {
+        "fwd": (correlation_fwd, correlation_torch),
+        "bwd_f1": (correlation_bwd_f1, correlation_bwd_f1_torch),
+        "bwd_f2": (correlation_bwd_f2, correlation_bwd_f2_torch),
+    }
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = {}
     for case, shape, p, s in KERNEL_CASES:
-        for dtype, (name, _) in KERNELS.items():
+        d = displacement_count(p, s)
+        for dtype in (torch.float32, torch.bfloat16):
             f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            with torch.inference_mode():
-                got = correlation_fwd(f1, f2, p, s)
-                torch.cuda.synchronize()
-                ref = correlation_torch(f1, f2, p, s)
-                err = (got.float() - ref.float()).abs().max().item()
-                scale = ref.float().abs().max().item()
-                ms = median_ms(lambda: correlation_fwd(f1, f2, p, s))
-                plain_ms = median_ms(lambda: correlation_torch(f1, f2, p, s))
-            bound, bound_by = bound_ms(shape, displacement_count(p, s), dtype)
-            ok = err <= TOLERANCE[dtype] * scale
-            print(f"kernel {name} {case} {shape} P={p} s={s}: max_abs_err {err:.3e} "
-                  f"(max|ref| {scale:.3e}, tol {TOLERANCE[dtype]}) ms {ms:.4f} "
-                  f"plain_ms {plain_ms:.3f} bound_ms {bound:.4f} ({bound_by})", flush=True)
-            if not ok:
-                raise AssertionError(f"{name} disagrees with its plain version at {case}")
-            if case == "eval":  # the main path's geometry
-                report[name] = {
-                    "name": name, "route": "cuda",
-                    "source": f"unflow_tpu_torch/csrc/{SOURCE}.cu",
-                    "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                    "library_ms": None,
-                }
+            g = torch.randn((*shape[:3], d * d), generator=gen, device="cuda").to(dtype)
+            for op, (kernel, plain) in ops.items():
+                name = kernel_name(op, dtype)
+                a, b = (f1, f2) if op == "fwd" else (g, f1)
+                with torch.inference_mode():
+                    got = kernel(a, b, p, s)
+                    torch.cuda.synchronize()
+                    ref = plain(a, b, p, s)
+                    err = (got.float() - ref.float()).abs().max().item()
+                    scale = ref.float().abs().max().item()
+                    ms = median_ms(lambda: kernel(a, b, p, s))
+                    plain_ms = median_ms(lambda: plain(a, b, p, s), runs=5, warmup=1)
+                bound, bound_by = bound_ms(shape, d, dtype)
+                print(f"kernel {name} {case} {shape} P={p} s={s}: max_abs_err {err:.3e} "
+                      f"(max|ref| {scale:.3e}, tol {TOLERANCE[dtype]}) ms {ms:.4f} "
+                      f"plain_ms {plain_ms:.3f} bound_ms {bound:.4f} ({bound_by})", flush=True)
+                if not err <= TOLERANCE[dtype] * scale:
+                    raise AssertionError(f"{name} disagrees with its plain version at {case}")
+                if case == REPORT_CASE[op]:
+                    report[name] = {
+                        "name": name, "route": "cuda",
+                        "source": f"unflow_tpu_torch/csrc/{KERNELS[name][0]}.cu",
+                        "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                        "library_ms": None, "shape": list(shape),
+                    }
     return report
+
+
+def check_function() -> None:
+    """The autograd Function over the three kernels against autograd through
+    the plain version: gradients of a random projection of the volume taken
+    in NCHW, so the cotangent reaches the Function as a permuted view."""
+    from unflow_tpu_torch.ops.correlation import correlation, displacement_count
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shape, p, s = (2, 24, 75, 64), 8, 2
+    d = displacement_count(p, s)
+    for dtype in (torch.float32, torch.bfloat16):
+        f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype).requires_grad_()
+        f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype).requires_grad_()
+        proj = torch.randn((shape[0], d * d, *shape[1:3]), generator=gen, device="cuda").to(dtype)
+
+        def grads(impl):
+            volume = correlation(f1, f2, p, s, impl=impl).permute(0, 3, 1, 2)
+            return torch.autograd.grad((volume * proj).sum(), (f1, f2))
+
+        for which, got, want in zip(("df1", "df2"), grads("cuda"), grads("torch")):
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            print(f"function {which} {dtype} {shape} P={p} s={s}: max_abs_err {err:.3e} "
+                  f"(max|ref| {scale:.3e}, tol {TOLERANCE[dtype]})", flush=True)
+            if not err <= TOLERANCE[dtype] * scale:
+                raise AssertionError(f"CorrelationFunction {which} disagrees with autograd")
 
 
 def synthetic_frames(n: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
@@ -157,18 +246,32 @@ def run_cli(tmp: Path) -> int:
     return launches
 
 
-def profile_batch(ev, ims1, ims2, wall_s: float, top: int = 8) -> None:
-    """Device time by kernel over one predict_batch (torch.profiler), and the
-    device's busy share of the unprofiled wall time ``wall_s``."""
+def profile_call(fn, what: str, wall_s: float, top: int = 8) -> None:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and the
+    device's busy share of the unprofiled wall time ``wall_s`` of one call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ev.predict_batch(ims1, ims2)
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]  # kernels, copies
+        fn()
+        torch.cuda.synchronize()
+    # kernels and copies, without the profiler's annotations (Optimizer.step#...),
+    # whose time their kernels already count
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not (getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."))]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"  profile: device busy {busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms wall per batch "
-          f"({busy_ms / (wall_s * 1e3):.3f})")
+    print(f"  profile: device busy {busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms wall per {what} "
+          f"({busy_ms / (wall_s * 1e3):.3f}), {sum(e.count for e in rows)} kernels and copies")
+    groups: dict[str, list[float]] = {}
+    for e in rows:
+        group = next((g for g, words in PROFILE_GROUPS.items() if any(w in e.key for w in words)),
+                     "other PyTorch kernels")
+        ms_count = groups.setdefault(group, [0.0, 0])
+        ms_count[0] += e.self_device_time_total / 1e3
+        ms_count[1] += e.count
+    for group, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  profile group: {ms:9.3f} ms  x{count:<5d} {group}")
     for e in sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         print(f"  profile: {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
@@ -201,7 +304,7 @@ def run_eval(dtype: str, kernel: str, tolerance: float) -> tuple[int, float]:
     print(f"main path predict_batch {dtype} batch 4: launches {launches} of {kernel} "
           f"pairs/s {pairs_per_s:.3f} (host clock, {runs} batches, incl. host padding "
           f"and copies)", flush=True)
-    profile_batch(ev, ims1, ims2, len(ims1) / pairs_per_s)
+    profile_call(lambda: ev.predict_batch(ims1, ims2), "batch", len(ims1) / pairs_per_s)
 
     ref_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, corr_impl="torch"))
     ref = Evaluator(ref_cfg, params=params, normalization=norm, device="cuda")
@@ -216,6 +319,125 @@ def run_eval(dtype: str, kernel: str, tolerance: float) -> tuple[int, float]:
     if not err < tolerance:
         raise AssertionError(f"predict_batch {dtype} disagrees with the plain correlation")
     return launches, pairs_per_s
+
+
+def train_config(tmp: Path, **overrides):
+    """configs/kitti_unsup_c.ini with ``dataset=synthetic``, its log directory
+    under ``tmp`` and ``overrides`` applied; also written to ``tmp`` for the CLI."""
+    from unflow_tpu_torch.config import load_config, save_config
+
+    cfg = load_config(CONFIG)
+    cfg.dirs.log = str(tmp / "log")
+    cfg.train.dataset = "synthetic"
+    for key, value in overrides.items():
+        setattr(cfg.train, key, value)
+    save_config(cfg, tmp / "train.ini")
+    return cfg
+
+
+def run_train_cli(tmp: Path, dtype: str, steps: int, batch: int) -> dict[str, int]:
+    """``cli.train`` in-process; returns the launch counts of the run."""
+    from unflow_tpu_torch.cli.train import main as train_main
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+
+    cfg = train_config(tmp)
+    name = f"smoke_{dtype}"
+    reset_launch_counts()
+    t = time.perf_counter()
+    rc = train_main(["--config", str(tmp / "train.ini"), "--ex", name,
+                     "--set", f"compute_dtype={dtype}", "--set", f"batch_size={batch}",
+                     "--set", f"num_iters={steps}", "--set", f"display_interval={min(4, steps)}"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    suffix = {"bfloat16": "bf16", "float32": "f32"}[dtype]
+    mine = {k: v for k, v in counts.items() if k.endswith(suffix)}
+    metrics = cfg.experiment_dir(name) / "metrics.jsonl"
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    print(f"train path cli.train {dtype} 320x1152 batch {batch}: rc {rc} steps {steps} "
+          f"launches {mine} {time.perf_counter() - t:.2f} s", flush=True)
+    if rc != 0 or any(v != steps for v in mine.values()) or len(mine) != 3:
+        raise AssertionError(f"cli.train {dtype} did not launch each kernel once per step: {counts}")
+    last = records[-1]
+    print(f"train path cli.train {dtype}: step {last['step']} loss {last['loss']:.5g} "
+          f"grad_norm {last['grad_norm']:.5g} pairs/s {last['pairs_per_sec']:.3f} "
+          f"step_ms {last['step_ms']:.3f} (the Trainer's last window; the host renders "
+          f"the synthetic pairs meanwhile)", flush=True)
+    if last["step"] != steps or not all(np.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"cli.train {dtype}: bad metrics.jsonl {records}")
+    return mine
+
+
+def host_batches(batch: int, count: int):
+    """``count`` synthetic 320x1152 batches, rendered up front."""
+    from unflow_tpu_torch.data.synthetic import batch_iterator
+
+    stream = batch_iterator(batch, 320, 1152, seed=3, num_threads=4)
+    batches = [next(stream) for _ in range(count)]
+    stream.close()
+    return batches
+
+
+def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float) -> None:
+    """One train step through the kernels against the same step through the
+    plain correlation: same parameters, batch and step seed."""
+    from unflow_tpu_torch.models import build_model, init_params
+    from unflow_tpu_torch.train import Trainer
+
+    batches = host_batches(batch, 1)
+    results = {}
+    params = None
+    for impl in ("cuda", "torch"):
+        cfg = train_config(tmp, compute_dtype=dtype, batch_size=batch, corr_impl=impl,
+                           num_iters=1, display_interval=1)
+        if params is None:
+            model = build_model(cfg, "cpu")
+            init_params(model, torch.Generator().manual_seed(5))
+            params = model.state_dict()
+        trainer = Trainer(cfg, tmp / f"twin_{dtype}_{impl}", itertools.cycle(batches), device="cuda",
+                          params=params)
+        logs = trainer.run()
+        grads = torch.cat([p.grad.flatten() for p in trainer.model.parameters()])
+        results[impl] = (logs["loss"], logs["grad_norm"], grads)
+    (loss_a, norm_a, g_a), (loss_b, norm_b, g_b) = results["cuda"], results["torch"]
+    rel = {
+        "loss": abs(loss_a - loss_b) / abs(loss_b),
+        "grad_norm": abs(norm_a - norm_b) / abs(norm_b),
+        "gradient_l2": (torch.linalg.vector_norm(g_a - g_b) / torch.linalg.vector_norm(g_b)).item(),
+    }
+    print(f"train step vs plain twin {dtype} batch {batch}: loss {loss_a:.6g} vs {loss_b:.6g}, "
+          f"grad_norm {norm_a:.6g} vs {norm_b:.6g}, relative differences "
+          + " ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (tol {tolerance})", flush=True)
+    if not (np.isfinite(loss_a) and all(v < tolerance for v in rel.values())):
+        raise AssertionError(f"train step {dtype} disagrees with its plain-correlation twin")
+
+
+def run_train_timed(tmp: Path, warmup: int = 4, steps: int = 16) -> None:
+    """``Trainer.run`` at 320x1152, batch 8, bf16 on batches that are ready on
+    the host: the step's time from the Trainer's own window, the peak memory
+    and a profile of one step."""
+    from unflow_tpu_torch.train import Trainer
+
+    cfg = train_config(tmp, num_iters=warmup + steps, display_interval=warmup + steps)
+    trainer = Trainer(cfg, tmp / "timed", itertools.cycle(host_batches(8, 2)), device="cuda")
+    trainer.run(max_iters=warmup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the window of the one record starts at run(); the warm-up logged nothing
+    trainer.run()
+    record = json.loads((tmp / "timed" / "metrics.jsonl").read_text().splitlines()[-1])
+    print(f"train Trainer.run bf16 320x1152 batch 8, host batches ready: pairs/s "
+          f"{record['pairs_per_sec']:.3f} step_ms {record['step_ms']:.3f} over {steps} steps "
+          f"(host clock, incl. host->device copies); loss {record['loss']:.5g}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    profile_call(lambda: trainer.train_step(next(trainer.batches)), "train step",
+                 record["step_ms"] / 1e3, top=14)
+    # After earlier profiler sessions in one process the tracer was seen to
+    # drop the large pageable copies, so the batch's copy is timed on its own.
+    batch = next(trainer.batches)
+    copy_ms = median_ms(lambda: trainer.put_batch(batch), runs=5, warmup=1)
+    mib = sum(batch[k].nbytes for k in ("im1", "im2")) / 2**20
+    print(f"  batch host->device copy ({mib:.1f} MiB, pageable): {copy_ms:.3f} ms by CUDA events "
+          f"(part of each step; it may be missing from the profile above)", flush=True)
 
 
 def main() -> int:
@@ -240,6 +462,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     report = check_kernels()
+    check_function()
 
     torch.backends.cudnn.allow_tf32 = False  # float32 means float32 in this check
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -248,9 +471,22 @@ def main() -> int:
     run_eval("bfloat16", "corr_fwd_bf16", 2e-2)
     report["corr_fwd_f32"]["launches"], _ = run_eval("float32", "corr_fwd_f32", 1e-4)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the forward kernels keep the counts of the serving path; the
+        # gradients' main path is the train step
+        for dtype, steps, batch in (("bfloat16", TRAIN_STEPS, 8), ("float32", 1, 2)):
+            for name, count in run_train_cli(tmp, dtype, steps, batch).items():
+                if "bwd" in name:
+                    report[name]["launches"] = count
+                    report[name]["main_path"] = f"cli.train, {steps} step(s)"
+        run_train_twin(tmp, "bfloat16", 8, 2e-2)
+        run_train_twin(tmp, "float32", 2, 1e-4)
+        run_train_timed(tmp)
+
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": list(report.values())}))
+    print(json.dumps({"kernels": [report[name] for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

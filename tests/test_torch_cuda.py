@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's six CUDA kernels and the autograd Function over them against
+their plain versions, on the card.
 
 Marked ``cuda``; each skips without an NVIDIA GPU. The file imports no JAX,
 so it also runs where JAX is not installed, without the suite's conftest:
@@ -10,8 +11,25 @@ import numpy as np
 import pytest
 import torch
 
-from unflow_tpu_torch.ops.correlation import correlation_torch
-from unflow_tpu_torch.ops.cuda.correlation import correlation_fwd, launch_counts
+from unflow_tpu_torch.ops.correlation import (
+    correlation,
+    correlation_bwd_f1_torch,
+    correlation_bwd_f2_torch,
+    correlation_torch,
+    displacement_count,
+)
+from unflow_tpu_torch.ops.cuda.correlation import (
+    correlation_bwd_f1,
+    correlation_bwd_f2,
+    correlation_fwd,
+    kernel_name,
+    launch_counts,
+)
+
+# narrow and wide maps; a width that divides no tile with stride 1 and H < D;
+# a displacement grid (D = 45) wider than the forward's 21-column blocks
+GEOMETRIES = [((2, 8, 40, 16), 4, 2), ((1, 9, 75, 24), 5, 1), ((1, 6, 20, 8), 44, 2)]
+DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 0.02)]
 
 
 def _pair(shape, seed=0):
@@ -26,11 +44,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _assert_close(got, want, tol):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 0.02)])
-@pytest.mark.parametrize(
-    "shape,max_disp,stride", [((2, 8, 40, 16), 4, 2), ((1, 9, 75, 24), 3, 1), ((1, 6, 20, 8), 44, 2)]
-)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("shape,max_disp,stride", GEOMETRIES)
 def test_cuda_kernel_matches_plain(cuda_device, shape, max_disp, stride, dtype, tol):
     a, b = _pair(shape, seed=4)
     f1 = torch.from_numpy(a).to(cuda_device, dtype)
@@ -40,13 +61,69 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, max_disp, stride, dtype, 
         got = correlation_fwd(f1, f2, max_disp, stride)
     torch.cuda.synchronize()
     assert sum(launch_counts().values()) == sum(before.values()) + 1
-    want = correlation_torch(f1, f2, max_disp, stride)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= tol * want.float().abs().max().item()
+    _assert_close(got, correlation_torch(f1, f2, max_disp, stride), tol)
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_autograd(cuda_device):
-    f1 = torch.randn(1, 4, 8, 8, device=cuda_device, requires_grad=True)
-    with pytest.raises(RuntimeError, match="backward"):
-        correlation_fwd(f1, f1.detach(), 2, 1)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("shape,max_disp,stride", GEOMETRIES)
+@pytest.mark.parametrize(
+    "op,kernel,plain",
+    [("bwd_f1", correlation_bwd_f1, correlation_bwd_f1_torch),
+     ("bwd_f2", correlation_bwd_f2, correlation_bwd_f2_torch)],
+)
+def test_cuda_gradient_kernel_matches_plain(
+    cuda_device, op, kernel, plain, shape, max_disp, stride, dtype, tol
+):
+    d = displacement_count(max_disp, stride)
+    rng = np.random.RandomState(5)
+    f = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda_device, dtype)
+    g = torch.from_numpy(rng.randn(*shape[:3], d * d).astype(np.float32)).to(cuda_device, dtype)
+    before = launch_counts()[kernel_name(op, dtype)]
+    got = kernel(g, f, max_disp, stride)
+    torch.cuda.synchronize()
+    assert launch_counts()[kernel_name(op, dtype)] == before + 1
+    assert got.dtype == dtype and got.shape == f.shape
+    _assert_close(got, plain(g, f, max_disp, stride), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("needs", [(True, True), (True, False), (False, True)])
+def test_cuda_function_matches_autograd(cuda_device, dtype, tol, needs):
+    """Gradients through the Function (kernels) against autograd through the
+    plain version, with a non-contiguous cotangent; only the gradients that
+    are asked for are launched."""
+    shape, max_disp, stride = (2, 9, 40, 16), 4, 2
+    d = displacement_count(max_disp, stride)
+    a, b = _pair(shape, seed=6)
+    maps = [torch.from_numpy(x).to(cuda_device, dtype).requires_grad_(n) for x, n in zip((a, b), needs)]
+    wanted = [m for m in maps if m.requires_grad]
+    proj = torch.from_numpy(
+        np.random.RandomState(7).randn(shape[0], d * d, *shape[1:3]).astype(np.float32)
+    ).to(cuda_device, dtype)
+
+    def grads(impl):
+        volume = correlation(*maps, max_disp, stride, impl=impl).permute(0, 3, 1, 2)
+        return torch.autograd.grad((volume * proj).sum(), wanted)
+
+    before = launch_counts()
+    got = grads("cuda")
+    torch.cuda.synchronize()
+    after = launch_counts()
+    for op, need in zip(("bwd_f1", "bwd_f2"), needs):
+        name = kernel_name(op, dtype)
+        assert after[name] - before[name] == int(need)
+    for x, y in zip(got, grads("torch")):
+        _assert_close(x, y, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    f = torch.randn(1, 4, 8, 8, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        correlation_fwd(f.half(), f.half(), 2, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        correlation_fwd(f.transpose(1, 2), f.transpose(1, 2), 2, 1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        correlation_bwd_f1(torch.zeros(1, 4, 8, 25), f, 2, 1)

@@ -4,12 +4,25 @@ A copy of ``unflow_tpu/config.py`` (``Config``, ``TrainConfig``,
 ``load_config``), so that the port reads the same ``configs/*.ini``: a
 ``[train]`` section, overridden key by key by ``[train_<dataset>]``.
 
-Keys the port reads so far: ``flownet``, ``dataset`` (normalization),
-``compute_dtype``, ``corr_impl`` (``auto|torch|cuda``; the JAX names
-``jnp``/``pallas`` map to ``torch``/``cuda``), ``max_displacement`` and
-``corr_stride``. ``conv_impl``, ``deconv_impl`` and ``remat`` select XLA
-lowerings on the TPU; they are accepted and ignored. The training keys wait
-for the training slice.
+A copy too of ``save_config`` and ``prepare_experiment_dir``, which snapshot
+the resolved config into ``<log>/ex/<name>/config.ini``.
+
+Keys the port reads: the model (``flownet``, ``compute_dtype``,
+``corr_impl`` -- ``auto|torch|cuda``; the JAX names ``jnp``/``pallas`` map
+to ``torch``/``cuda`` --, ``max_displacement``, ``corr_stride``), ``dataset``
+(``synthetic`` trains; the others only name a normalization so far), the
+train step (``batch_size``, ``height``, ``width``, ``num_iters``,
+``learning_rate``, ``decay_after``, ``decay_interval``, ``weight_decay``,
+``grad_clip_norm``, ``display_interval``, ``seed``, ``num_threads``,
+``train_all``), the loss (the ``*_weight`` keys, ``mask_occlusion``,
+``border_ratio``) and the augmentation (``aug_swap_prob``,
+``aug_photometric``, ``aug_hflip``, ``aug_noise_stddev``).
+``conv_impl``, ``deconv_impl`` and ``remat`` select XLA lowerings on the TPU;
+they are accepted and ignored. Keys of parts that are not ported yet
+(``supervised``, ``finetune``, the affine ``aug_*`` ranges, ``eval_interval``,
+``tensorboard``, ``image_summary_interval`` > 0, ``num_devices`` > 1,
+``spatial_shards`` > 1) make the trainer raise when they ask for those parts;
+``save_interval`` is not read, because nothing is saved yet.
 """
 
 from __future__ import annotations
@@ -79,6 +92,18 @@ class TrainConfig:
     spatial_shards: int = 1
     seed: int = 0
 
+    def loss_weights(self) -> dict[str, float]:
+        return {
+            "occ": self.occ_weight,
+            "sym": self.sym_weight,
+            "fb": self.fb_weight,
+            "grad": self.grad_weight,
+            "ternary": self.ternary_weight,
+            "photo": self.photo_weight,
+            "smooth_1st": self.smooth_1st_weight,
+            "smooth_2nd": self.smooth_2nd_weight,
+        }
+
 
 @dataclasses.dataclass
 class DirsConfig:
@@ -135,3 +160,33 @@ def load_config(path: str | Path, dataset_overrides: bool = True) -> Config:
         if parser.has_section(override):
             apply(override)
     return cfg
+
+
+def save_config(cfg: Config, path: str | Path) -> None:
+    parser = configparser.ConfigParser()
+    parser["dirs"] = dataclasses.asdict(cfg.dirs)
+    parser["train"] = {
+        key: ",".join(val) if isinstance(val, tuple) else str(val)
+        for key, val in dataclasses.asdict(cfg.train).items()
+    }
+    # Atomic write (tmp + rename): a reader never sees a truncated snapshot.
+    path = Path(path)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    with open(tmp, "w") as f:
+        parser.write(f)
+    tmp.replace(path)
+
+
+def prepare_experiment_dir(cfg: Config, name: str) -> Path:
+    """Create (or reuse) the experiment dir and snapshot the config into it.
+
+    The snapshot is written from the *resolved* ``cfg`` (after ``--set``
+    overrides), never copied from the raw file; an existing snapshot is left
+    as it is.
+    """
+    ex_dir = cfg.experiment_dir(name)
+    snapshot = ex_dir / "config.ini"
+    ex_dir.mkdir(parents=True, exist_ok=True)
+    if not snapshot.exists():
+        save_config(cfg, snapshot)
+    return ex_dir

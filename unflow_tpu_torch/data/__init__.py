@@ -2,8 +2,9 @@
 
 A copy of the constants of ``unflow_tpu/data`` (``base.py::PairDataset``,
 ``kitti.py::KITTI_MEAN``/``KITTI_STDDEV`` and the ``DATASETS`` registry):
-mean of the 0..255 RGB channels and one stddev. The dataset loaders
-themselves are not ported yet.
+mean of the 0..255 RGB channels and one stddev. Of the data sources only the
+synthetic stream (``data/synthetic.py``) is here; the dataset loaders are not
+ported yet.
 """
 
 from __future__ import annotations

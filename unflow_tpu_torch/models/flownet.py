@@ -7,7 +7,9 @@ structure and the parameter names follow the flax modules, so that
 ``state_dict`` keys one to one:
 
   * conv1-3 form a shared tower (7x7/2·64, 5x5/2·128, 5x5/2·256), run here
-    once on both frames stacked along the batch;
+    once on both frames stacked along the batch (inference), or once on the
+    interleaved forward/backward batch of the train step, whose second map
+    is the first with its pairs swapped (``pair_flipped_im2``);
   * the 441-channel correlation (max_displacement 20, stride 2) of the two
     conv3 maps, leaky-ReLU, concatenated with a 1x1 ``conv_redir`` (32
     channels) of frame 1;
@@ -39,6 +41,12 @@ FLOW_SCALE = 5.0
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.1)
+
+
+def _pair_flip(x: torch.Tensor) -> torch.Tensor:
+    """Swap each adjacent (forward, backward) pair along the batch axis:
+    row 2i <-> row 2i+1."""
+    return x.reshape(x.shape[0] // 2, 2, *x.shape[1:]).flip(1).reshape(x.shape).contiguous()
 
 
 class Deconv4x4(nn.ConvTranspose2d):
@@ -121,17 +129,29 @@ class FlowNetC(nn.Module):
         self.conv6_1 = Conv2dSame(1024, 1024, 3)
         self.decoder = Decoder()
 
-    def forward(self, im1: torch.Tensor, im2: torch.Tensor) -> list[torch.Tensor]:
-        """``(B, 3, H, W)`` normalized frames -> five float32 flows."""
+    def forward(
+        self, im1: torch.Tensor, im2: torch.Tensor, pair_flipped_im2: bool = False
+    ) -> list[torch.Tensor]:
+        """``(B, 3, H, W)`` normalized frames -> five float32 flows.
+
+        ``pair_flipped_im2``: the caller's promise that ``im2`` is ``im1``
+        with each adjacent pair of rows swapped (the interleaved
+        forward/backward batch of the train step). The tower then runs once,
+        on ``im1``, and the second conv3 map is the first with its pairs
+        swapped. Without it the tower runs once on both frames stacked.
+        """
         n = im1.shape[0]
-        x = torch.cat([im1, im2]).to(dtype=self.compute_dtype, memory_format=torch.channels_last)
+        x = im1 if pair_flipped_im2 else torch.cat([im1, im2])
+        x = x.to(dtype=self.compute_dtype, memory_format=torch.channels_last)
         c2 = _leaky(self.conv2(_leaky(self.conv1(x))))
         c3 = _leaky(self.conv3(c2))
-        c3a, c3b = c3[:n], c3[n:]
-        corr = correlation(
-            c3a.permute(0, 2, 3, 1).contiguous(), c3b.permute(0, 2, 3, 1).contiguous(),
-            self.max_displacement, self.corr_stride, self.corr_impl,
-        )
+        c3a = c3[:n]
+        f1 = c3a.permute(0, 2, 3, 1).contiguous()  # NHWC; no copy from channels_last
+        if pair_flipped_im2:
+            f2 = _pair_flip(f1)
+        else:
+            f2 = c3[n:].permute(0, 2, 3, 1).contiguous()
+        corr = correlation(f1, f2, self.max_displacement, self.corr_stride, self.corr_impl)
         corr = _leaky(corr.permute(0, 3, 1, 2).to(self.compute_dtype))
         redir = _leaky(self.conv_redir(c3a))
         c3_1 = _leaky(self.conv3_1(torch.cat([corr, redir], 1)))
@@ -162,8 +182,10 @@ class FlowNetStack(nn.Module):
         self.spec = spec
         self.stage0_C = FlowNetC(compute_dtype, max_displacement, corr_stride, corr_impl)
 
-    def forward(self, im1: torch.Tensor, im2: torch.Tensor) -> list[list[torch.Tensor]]:
-        flows = self.stage0_C(im1, im2)
+    def forward(
+        self, im1: torch.Tensor, im2: torch.Tensor, pair_flipped_im2: bool = False
+    ) -> list[list[torch.Tensor]]:
+        flows = self.stage0_C(im1, im2, pair_flipped_im2)
         if self.spec.islower():
             flows = [f.detach() for f in flows]
         return [flows]

@@ -10,9 +10,10 @@ JAX layout, NHWC: ``(B, H, W, C)`` in, ``(B, H, W, D*D)`` out, dy the slower
 displacement axis. Sums are taken in float32 and cast to the input dtype,
 the contract of the JAX package's Pallas kernels.
 
-Two implementations: :func:`correlation_torch`, the plain version (any
-device, differentiable by autograd), and the CUDA kernel behind
-:mod:`unflow_tpu_torch.ops.cuda.correlation`.
+Two implementations: the plain versions here (:func:`correlation_torch`,
+any device, differentiable by autograd, and its two gradients written out,
+:func:`correlation_bwd_f1_torch` and :func:`correlation_bwd_f2_torch`), and
+the CUDA kernels behind :mod:`unflow_tpu_torch.ops.cuda.correlation`.
 """
 
 from __future__ import annotations
@@ -50,6 +51,49 @@ def correlation_torch(
     return (out / c).to(f1.dtype)
 
 
+def correlation_bwd_f1_torch(
+    g: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride: int = 2
+) -> torch.Tensor:
+    """Plain gradient of the cost volume to ``f1``, for the cotangent ``g``
+    ``(B, H, W, D*D)``:
+
+        df1[b, y, x, c] = (1/C) * sum_{dy,dx} g[b, y, x, dy*D + dx] * f2[b, y + dy, x + dx, c]
+
+    summed in float32 and cast to the dtype of ``f2``.
+    """
+    b, h, w, c = f2.shape
+    d = displacement_count(max_displacement, stride)
+    p, s = max_displacement, stride
+    gf = g.float()
+    f2p = F.pad(f2.float(), (0, 0, p, p, p, p))
+    out = torch.zeros((b, h, w, c), dtype=torch.float32, device=f2.device)
+    for i in range(d):
+        for j in range(d):
+            out += gf[..., i * d + j, None] * f2p[:, i * s : i * s + h, j * s : j * s + w]
+    return (out / c).to(f2.dtype)
+
+
+def correlation_bwd_f2_torch(
+    g: torch.Tensor, f1: torch.Tensor, max_displacement: int = 20, stride: int = 2
+) -> torch.Tensor:
+    """Plain gradient of the cost volume to ``f2``:
+
+        df2[b, u, v, c] = (1/C) * sum_{dy,dx} g[b, u - dy, v - dx, dy*D + dx] * f1[b, u - dy, v - dx, c]
+
+    with ``g`` and ``f1`` zero outside the map; summed in float32 over the
+    zero-padded extent, cropped and cast to the dtype of ``f1``.
+    """
+    b, h, w, c = f1.shape
+    d = displacement_count(max_displacement, stride)
+    p, s = max_displacement, stride
+    gf, a = g.float(), f1.float()
+    acc = torch.zeros((b, h + 2 * p, w + 2 * p, c), dtype=torch.float32, device=f1.device)
+    for i in range(d):
+        for j in range(d):
+            acc[:, i * s : i * s + h, j * s : j * s + w] += gf[..., i * d + j, None] * a
+    return (acc[:, p : p + h, p : p + w] / c).to(f1.dtype)
+
+
 def correlation(
     f1: torch.Tensor,
     f2: torch.Tensor,
@@ -59,12 +103,13 @@ def correlation(
 ) -> torch.Tensor:
     """Cost volume between two NHWC feature maps.
 
-    ``impl``: ``auto`` (the kernel for CUDA tensors, the plain version for
-    CPU tensors), ``torch`` (the plain version) or ``cuda`` (the kernel;
-    raises for CPU tensors).
+    ``impl``: ``auto`` (the kernels for CUDA tensors, the plain version for
+    CPU tensors), ``torch`` (the plain version, differentiated by autograd)
+    or ``cuda`` (the forward and gradient kernels behind one
+    ``torch.autograd.Function``; raises for CPU tensors).
     """
     if resolve_impl(impl, f1.device) == "cuda":
-        from unflow_tpu_torch.ops.cuda.correlation import correlation_fwd
+        from unflow_tpu_torch.ops.cuda.correlation import CorrelationFunction
 
-        return correlation_fwd(f1, f2, max_displacement, stride)
+        return CorrelationFunction.apply(f1, f2, max_displacement, stride)
     return correlation_torch(f1, f2, max_displacement, stride)

@@ -1,13 +1,20 @@
-"""Wrapper of the CUDA correlation forward kernel (``csrc/correlation_fwd.cu``).
+"""Wrappers of the CUDA correlation kernels (``csrc/correlation_fwd.cu`` and
+``csrc/correlation_bwd.cu``) and the ``torch.autograd.Function`` over them.
 
-One templated kernel covers both dtype contracts of the JAX package's two
-TPU forward kernels: float32 (``ops/pallas/correlation.py::_corr_fwd_chunk``)
-and bfloat16 (``ops/pallas/correlation_mxu.py::corr_fwd_mxu``). Each launch
-adds one to its entry in :func:`launch_counts`, so a run can show that its
-path went through the kernel.
+Each kernel is one template instantiated for float32 and for bfloat16 (bf16
+in, f32 sums, bf16 out), the two dtype contracts of the JAX package's TPU
+kernels:
 
-On CUDA this forward is for inference only: the gradient kernels are not
-ported yet, so a call that autograd would have to differentiate raises.
+  * forward: ``ops/pallas/correlation.py::_corr_fwd_chunk`` (f32) and
+    ``ops/pallas/correlation_mxu.py::corr_fwd_mxu`` (bf16);
+  * gradient to f1: ``_corr_bwd_f1_chunk`` (f32), ``corr_bwd_f1_mxu`` (bf16);
+  * gradient to f2: ``_corr_bwd_f2_chunk`` (f32), ``corr_bwd_f2_mxu`` (bf16).
+
+:class:`CorrelationFunction` takes the place of the ``custom_vjp``
+``correlation_pallas``. Each launch adds one to its kernel's entry in
+:func:`launch_counts`, so a run can show that its path went through the
+kernels. CUDA tensors go through a kernel or the call raises; only CPU
+tensors take the plain versions of :mod:`unflow_tpu_torch.ops.correlation`.
 """
 
 from __future__ import annotations
@@ -15,16 +22,30 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from unflow_tpu_torch.ops.correlation import correlation_torch, displacement_count
+from unflow_tpu_torch.ops.correlation import (
+    correlation_bwd_f1_torch,
+    correlation_bwd_f2_torch,
+    correlation_torch,
+    displacement_count,
+)
 
-SOURCE = "correlation_fwd"
-# dtype -> (kernel name, C symbol)
+_DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# op -> source under csrc/
+SOURCES = {"fwd": "correlation_fwd", "bwd_f1": "correlation_bwd", "bwd_f2": "correlation_bwd"}
+# kernel name -> (source, C symbol)
 KERNELS = {
-    torch.float32: ("corr_fwd_f32", "unflow_corr_fwd_f32"),
-    torch.bfloat16: ("corr_fwd_bf16", "unflow_corr_fwd_bf16"),
+    f"corr_{op}_{suffix}": (source, f"unflow_corr_{op}_{suffix}")
+    for op, source in SOURCES.items()
+    for suffix in _DTYPE_SUFFIX.values()
 }
-_LAUNCHES = {name: 0 for name, _ in KERNELS.values()}
+_LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def kernel_name(op: str, dtype: torch.dtype) -> str:
+    """Name of the kernel of ``op`` (``fwd``, ``bwd_f1``, ``bwd_f2``) for ``dtype``."""
+    return f"corr_{op}_{_DTYPE_SUFFIX[dtype]}"
 
 
 def launch_counts() -> dict[str, int]:
@@ -36,13 +57,48 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
-def _symbol(dtype: torch.dtype):
+def _symbol(name: str):
     from unflow_tpu_torch.ops.cuda.build import load
 
-    fn = getattr(load(SOURCE), KERNELS[dtype][1])
+    source, symbol = KERNELS[name]
+    fn = getattr(load(source), symbol)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_geometry(max_displacement: int, stride: int) -> None:
+    if max_displacement % stride:
+        raise ValueError(
+            f"max_displacement ({max_displacement}) must be divisible by stride ({stride})"
+        )
+
+
+def _launch(
+    op: str, a: torch.Tensor, b: torch.Tensor, out_channels: int, max_displacement: int, stride: int
+) -> torch.Tensor:
+    """Check two CUDA inputs, allocate the output ``(B, H, W, out_channels)``
+    and launch the kernel of ``op`` on the current stream of their device.
+    The map's shape ``(B, H, W, C)`` is ``b``'s."""
+    if not (a.is_cuda and b.device == a.device):
+        raise ValueError(f"{op}: inputs must lie on one CUDA device: {a.device} vs {b.device}")
+    if b.dtype not in _DTYPE_SUFFIX or a.dtype != b.dtype:
+        raise TypeError(f"CUDA correlation takes float32 or bfloat16: {a.dtype}, {b.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{op}: the CUDA correlation needs contiguous NHWC inputs")
+    name = kernel_name(op, b.dtype)
+    batch, h, w, c = b.shape
+    out = torch.empty((batch, h, w, out_channels), dtype=b.dtype, device=b.device)
+    # autograd runs backward on a thread of its own: enter the device there too
+    with torch.cuda.device(b.device):
+        err = _symbol(name)(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, h, w, c,
+            max_displacement, stride, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    _LAUNCHES[name] += 1
+    return out
 
 
 def correlation_fwd(
@@ -51,36 +107,69 @@ def correlation_fwd(
     """Cost volume ``(B, H, W, D*D)`` of NHWC feature maps ``(B, H, W, C)``.
 
     CUDA tensors go through the kernel (or the call raises); CPU tensors go
-    through the plain version :func:`correlation_torch`.
+    through the plain version :func:`correlation_torch`. The result carries
+    no autograd graph: :class:`CorrelationFunction` adds the gradients.
     """
-    if max_displacement % stride:
-        raise ValueError(
-            f"max_displacement ({max_displacement}) must be divisible by stride ({stride})"
-        )
+    _check_geometry(max_displacement, stride)
     if f1.shape != f2.shape or f1.dim() != 4:
         raise ValueError(f"f1/f2 must be equal (B, H, W, C) shapes: {f1.shape} vs {f2.shape}")
     if f1.device.type == "cpu" and f2.device.type == "cpu":
         return correlation_torch(f1, f2, max_displacement, stride)
-    if not (f1.is_cuda and f2.device == f1.device):
-        raise ValueError(f"f1/f2 must lie on one CUDA device: {f1.device} vs {f2.device}")
-    if f1.dtype not in KERNELS or f2.dtype != f1.dtype:
-        raise TypeError(f"CUDA correlation takes float32 or bfloat16: {f1.dtype}, {f2.dtype}")
-    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
-        raise RuntimeError(
-            "the CUDA correlation has no backward kernel yet; run it under "
-            "torch.inference_mode() or torch.no_grad()"
-        )
-    if not (f1.is_contiguous() and f2.is_contiguous()):
-        raise ValueError("CUDA correlation needs contiguous NHWC inputs")
-    b, h, w, c = f1.shape
     d = displacement_count(max_displacement, stride)
-    out = torch.empty((b, h, w, d * d), dtype=f1.dtype, device=f1.device)
-    with torch.cuda.device(f1.device):
-        err = _symbol(f1.dtype)(
-            f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h, w, c,
-            max_displacement, stride, torch.cuda.current_stream().cuda_stream,
+    return _launch("fwd", f1, f2, d * d, max_displacement, stride)
+
+
+def _check_cotangent(g: torch.Tensor, f: torch.Tensor, max_displacement: int, stride: int) -> None:
+    _check_geometry(max_displacement, stride)
+    d = displacement_count(max_displacement, stride)
+    if f.dim() != 4 or g.shape != (*f.shape[:3], d * d):
+        raise ValueError(
+            f"cotangent {tuple(g.shape)} does not fit maps {tuple(f.shape)} with D*D = {d * d}"
         )
-    if err != 0:
-        raise RuntimeError(f"{KERNELS[f1.dtype][0]} launch failed: cudaError {err}")
-    _LAUNCHES[KERNELS[f1.dtype][0]] += 1
-    return out
+
+
+def correlation_bwd_f1(
+    g: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride: int = 2
+) -> torch.Tensor:
+    """Gradient to ``f1`` for the cotangent ``g`` ``(B, H, W, D*D)``, in the
+    dtype of ``f2``. CUDA tensors go through the kernel or raise; CPU tensors
+    take :func:`correlation_bwd_f1_torch`."""
+    _check_cotangent(g, f2, max_displacement, stride)
+    if g.device.type == "cpu" and f2.device.type == "cpu":
+        return correlation_bwd_f1_torch(g, f2, max_displacement, stride)
+    return _launch("bwd_f1", g, f2, f2.shape[3], max_displacement, stride)
+
+
+def correlation_bwd_f2(
+    g: torch.Tensor, f1: torch.Tensor, max_displacement: int = 20, stride: int = 2
+) -> torch.Tensor:
+    """Gradient to ``f2``, in the dtype of ``f1``; routes as
+    :func:`correlation_bwd_f1`."""
+    _check_cotangent(g, f1, max_displacement, stride)
+    if g.device.type == "cpu" and f1.device.type == "cpu":
+        return correlation_bwd_f2_torch(g, f1, max_displacement, stride)
+    return _launch("bwd_f2", g, f1, f1.shape[3], max_displacement, stride)
+
+
+class CorrelationFunction(torch.autograd.Function):
+    """``correlation(f1, f2, max_displacement, stride)`` with its forward and
+    both gradients in the wrappers above (port of the ``custom_vjp``
+    ``ops/pallas/correlation.py::correlation_pallas``). Only the gradients
+    that are asked for are launched. The cotangent arrives in the dtype of
+    the output and is made contiguous (one copy when autograd hands over a
+    permuted view or a slice)."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_displacement, stride):
+        ctx.save_for_backward(f1, f2)
+        ctx.geometry = (max_displacement, stride)
+        return correlation_fwd(f1, f2, max_displacement, stride)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        g = g.contiguous()
+        df1 = correlation_bwd_f1(g, f2, *ctx.geometry) if ctx.needs_input_grad[0] else None
+        df2 = correlation_bwd_f2(g, f1, *ctx.geometry) if ctx.needs_input_grad[1] else None
+        return df1, df2, None, None
