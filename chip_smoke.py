@@ -1,37 +1,48 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (unflow_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py          # from the root of a checkout; needs one GPU
+    python3 chip_smoke.py            # from the root of a checkout; needs one GPU
 
 Phases; any failure raises and the script exits non-zero without a result line:
 
   1. build   -- nvcc compiles every CUDA source of the port for sm_90a, one
                 process per source, all started together.
-  2. kernels -- each of the six kernels (correlation forward, gradient to f1,
-                gradient to f2; float32 and bfloat16) against its plain PyTorch
+  2. kernels -- each of the eight kernels (correlation forward, gradient to f1,
+                gradient to f2; float32 and bfloat16; for the bfloat16 forward and
+                gradient to f2 the tensor-core kernel and its FP32-core twin
+                ``*_simt``, called past the dispatch) against its plain PyTorch
                 version on the card (tolerance 1e-5 * max|ref| in float32, 0.02 *
                 max|ref| in bfloat16), at the training geometry (16, 40, 144,
                 256), the eval geometry (4, 48, 160, 256), both with
-                max_displacement 20 and stride 2, and an odd case (W not a
-                multiple of the 32-column tile, stride 1). Times are medians of
-                20 launches, each timed with CUDA events after warm-up. Then the
-                autograd Function over the three kernels against autograd through
-                the plain version, with a non-contiguous cotangent.
+                max_displacement 20 and stride 2, an odd case (W a multiple
+                of no tile, stride 1), and the training geometry with stride 4,
+                which the dispatch sends to the FP32-core kernels' run-time
+                stride (in bfloat16 to the two ``*_simt`` twins; their reported
+                numbers are from this case). Times are medians of 20 launches,
+                each timed with CUDA events after warm-up. A tensor-core kernel
+                that is slower than its twin at the training geometry fails the run.
+                Then the autograd Function over the three kernels against
+                autograd through the plain version, with a non-contiguous
+                cotangent.
   3. serving path -- ``unflow_tpu_torch.cli.infer`` with ``--random-init`` on two
                 375x1242 frames (configs/kitti_unsup_c.ini: FlowNetC, bf16), then
                 ``Evaluator.predict_batch`` at batch 4 in bf16 and in f32 (TF32
                 off). Each run starts with the launch counts at 0 and must launch
-                its kernel; each flow must be finite and agree with the same
-                weights run through the plain correlation (relative L2 < 2e-2 in
-                bf16, < 1e-4 in f32).
+                its kernel (in bf16 the tensor-core one, and no ``*_simt``); each
+                flow must be finite and agree with the same weights run through
+                the plain correlation (relative L2 < 2e-2 in bf16, < 1e-4 in f32).
   4. training path -- ``unflow_tpu_torch.cli.train`` with the same config and
                 ``dataset=synthetic``: 12 steps at 320x1152, batch 8, bf16, which
-                must launch the three bf16 kernels once per step, end with a
-                finite loss and write ``metrics.jsonl``; then one f32 step at
-                batch 2, which must launch the three f32 kernels. Then one train
+                must launch the three bf16 kernels once per step (the tensor-core
+                ones, no ``*_simt``), end with a finite loss and write
+                ``metrics.jsonl``; then one f32 step at batch 2, which must launch
+                the three f32 kernels; then two bf16 steps with ``corr_stride=4``,
+                a displacement grid the tensor-core kernels do not take, which
+                must launch the two ``*_simt`` twins instead. Then one train
                 step through the kernels against the same step through the plain
-                correlation (same parameters, batch and seed): loss, grad_norm and
-                the relative L2 of the whole gradient must agree (2e-2 in bf16,
+                correlation (same parameters, batch and seed), in bf16, in f32
+                and in bf16 with ``corr_stride=4``: loss, grad_norm and the
+                relative L2 of the whole gradient must agree (2e-2 in bf16,
                 1e-4 in f32 with TF32 off: summation order and the atomics of the
                 warp's gradient differ). Last, ``Trainer.run`` on batches that are
                 ready on the host, for the step's own time, its peak memory and a
@@ -68,13 +79,20 @@ REPLACES = {
     "corr_bwd_f2_f32": "unflow_tpu/ops/pallas/correlation.py:285",
     "corr_bwd_f1_bf16": "unflow_tpu/ops/pallas/correlation_mxu.py:281",
     "corr_bwd_f2_bf16": "unflow_tpu/ops/pallas/correlation_mxu.py:389",
+    "corr_fwd_bf16_simt": "unflow_tpu/ops/pallas/correlation_mxu.py:187",
+    "corr_bwd_f2_bf16_simt": "unflow_tpu/ops/pallas/correlation_mxu.py:389",
 }
 # the geometry each op's reported time is taken at: that of its main path
+# (for a ``*_simt`` twin the stride-4 case, the one that reaches it)
 REPORT_CASE = {"fwd": "eval", "bwd_f1": "train", "bwd_f2": "train"}
+SIMT_CASE = "stride4"
 TRAIN_STEPS = 12
 # profile rows by the words in a kernel's name; the first group that matches
 PROFILE_GROUPS = {
-    "correlation kernels (this repo)": ("corr_fwd_kernel", "corr_bwd_f1_kernel", "corr_bwd_f2_kernel"),
+    "correlation kernels (this repo)": (
+        "corr_fwd_kernel", "corr_bwd_f1_kernel", "corr_bwd_f2_kernel", "corr_fwd_mma_kernel",
+        "corr_bwd_f2_mma_kernel",
+    ),
     "copies": ("Memcpy", "Memset"),
     "cuDNN convolutions and their layout kernels": (
         "cudnn", "xmma", "cutlass", "implicit_gemm", "dgrad", "wgrad", "convolve", "nhwc", "nchw",
@@ -93,6 +111,7 @@ KERNEL_CASES = [
     ("train", (16, 40, 144, 256), 20, 2),
     ("eval", (4, 48, 160, 256), 20, 2),
     ("odd", (2, 24, 75, 256), 10, 1),
+    (SIMT_CASE, (16, 40, 144, 256), 20, 4),
 ]
 
 
@@ -121,6 +140,47 @@ def bound_ms(shape, d: int, dtype: torch.dtype) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def banded_work(op: str, shape, p: int, s: int) -> str:
+    """What a tensor-core kernel's grid does at ``shape``, counted from the
+    geometry helpers its wrapper shares with the CPU model: blocks, output
+    rows per block, bytes staged from L2 into shared memory (every block's
+    row windows, map columns only) and matrix instructions executed."""
+    from unflow_tpu_torch.ops import correlation_banded as banded
+
+    b, h, w, c = shape
+    d = 2 * (p // s) + 1
+    choices = banded.FWD_ROWS_CHOICES if op == "fwd" else banded.BWD_F2_ROWS_CHOICES
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = banded.rows_per_block(choices, h, w, b, s, sms)
+    groups = banded.row_groups(h, s, rows)
+    needed = banded.rows_per_phase(s) + d - 1
+    staged = mmas = 0
+    for tile in range(banded.tile_count(w)):
+        x0 = tile * banded.TILE_X
+        pixels = sum(
+            0 <= banded.window_column(x0, p, s, phase, m) < w
+            for phase in range(s) for m in range(needed)
+        )
+        live_tiles = sum(
+            banded.output_column(x0, s, phase, rt * banded.MMA_ROWS) < w
+            for phase in range(s) for rt in range(banded.row_tiles(s))
+        )
+        for group in range(groups):
+            ys = [y for y in banded.group_rows(group, s, rows) if y < h]
+            # source rows of the group inside the map, and (output row, source row) meetings
+            if op == "fwd":
+                meets = [(y, y + s * i - p) for y in ys for i in range(d)]
+            else:
+                meets = [(u, u + p - s * i) for u in ys for i in range(d)]
+            meets = [(a, src) for a, src in meets if 0 <= src < h]
+            staged += len({src for _, src in meets}) * pixels * c * 2
+            per_meeting = (c // 16) * 5 if op == "fwd" else 3 * (c // 8)
+            mmas += len(meets) * live_tiles * per_meeting
+    blocks = banded.tile_count(w) * groups * b
+    return (f"{blocks} blocks of {rows} rows on {sms} SMs, staged from L2 "
+            f"{staged * b / 1e6:.1f} MB, {mmas * b / 1e6:.2f} M mma.m16n8k16")
+
+
 def check_kernels() -> dict[str, dict]:
     from unflow_tpu_torch.ops.correlation import (
         correlation_bwd_f1_torch,
@@ -130,10 +190,12 @@ def check_kernels() -> dict[str, dict]:
     )
     from unflow_tpu_torch.ops.cuda.correlation import (
         KERNELS,
+        TENSOR_CORE_SOURCES,
         correlation_bwd_f1,
         correlation_bwd_f2,
         correlation_fwd,
         kernel_name,
+        launch_counts,
     )
 
     # op -> (wrapper, plain version); each takes (a, b, P, s): the forward
@@ -152,30 +214,53 @@ def check_kernels() -> dict[str, dict]:
             f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             g = torch.randn((*shape[:3], d * d), generator=gen, device="cuda").to(dtype)
             for op, (kernel, plain) in ops.items():
-                name = kernel_name(op, dtype)
                 a, b = (f1, f2) if op == "fwd" else (g, f1)
+                name = kernel_name(op, dtype, shape[3], p, s)
+                # only the stride-4 case goes to the FP32-core twins by itself
+                if name.endswith("_simt") != (case == SIMT_CASE and dtype == torch.bfloat16
+                                              and op in TENSOR_CORE_SOURCES):
+                    raise AssertionError(f"{case}: the dispatch chose {name}")
+                # a tensor-core kernel's twin is launched too, past the dispatch
+                names = [name] + [n for n in (name + "_simt",) if n in KERNELS]
                 with torch.inference_mode():
-                    got = kernel(a, b, p, s)
-                    torch.cuda.synchronize()
                     ref = plain(a, b, p, s)
-                    err = (got.float() - ref.float()).abs().max().item()
-                    scale = ref.float().abs().max().item()
-                    ms = median_ms(lambda: kernel(a, b, p, s))
                     plain_ms = median_ms(lambda: plain(a, b, p, s), runs=5, warmup=1)
+                scale = ref.float().abs().max().item()
                 bound, bound_by = bound_ms(shape, d, dtype)
-                print(f"kernel {name} {case} {shape} P={p} s={s}: max_abs_err {err:.3e} "
-                      f"(max|ref| {scale:.3e}, tol {TOLERANCE[dtype]}) ms {ms:.4f} "
-                      f"plain_ms {plain_ms:.3f} bound_ms {bound:.4f} ({bound_by})", flush=True)
-                if not err <= TOLERANCE[dtype] * scale:
-                    raise AssertionError(f"{name} disagrees with its plain version at {case}")
-                if case == REPORT_CASE[op]:
-                    report[name] = {
-                        "name": name, "route": "cuda",
-                        "source": f"unflow_tpu_torch/csrc/{KERNELS[name][0]}.cu",
-                        "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                        "library_ms": None, "shape": list(shape),
-                    }
+                times = {}
+                for which in names:
+                    forced = {"kernel": which} if which != name else {}
+                    before = launch_counts()[which]
+                    with torch.inference_mode():
+                        got = kernel(a, b, p, s, **forced)
+                        torch.cuda.synchronize()
+                        ms = times[which] = median_ms(lambda: kernel(a, b, p, s, **forced))
+                    if launch_counts()[which] <= before:
+                        raise AssertionError(f"{which} was not the kernel launched at {case}")
+                    err = (got.float() - ref.float()).abs().max().item()
+                    print(f"kernel {which} {case} {shape} P={p} s={s}: max_abs_err {err:.3e} "
+                          f"(max|ref| {scale:.3e}, tol {TOLERANCE[dtype]}) ms {ms:.4f} "
+                          f"plain_ms {plain_ms:.3f} bound_ms {bound:.4f} ({bound_by}) "
+                          f"ms/bound {ms / bound:.2f}", flush=True)
+                    if not err <= TOLERANCE[dtype] * scale:
+                        raise AssertionError(f"{which} disagrees with its plain version at {case}")
+                    if case == (SIMT_CASE if which.endswith("_simt") else REPORT_CASE[op]):
+                        report[which] = {
+                            "name": which, "route": "cuda",
+                            "source": f"unflow_tpu_torch/csrc/{KERNELS[which][0]}.cu",
+                            "replaces": REPLACES[which], "launches": 0, "max_abs_err": err,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                            "bound_by": bound_by, "library_ms": None, "shape": list(shape),
+                            "max_displacement": p, "stride": s,
+                        }
+                if len(names) == 2:
+                    ms, simt_ms = times[name], times[name + "_simt"]
+                    print(f"tensor cores {name} {case}: ms {ms:.4f} simt_ms {simt_ms:.4f} "
+                          f"bound_ms {bound:.4f} ms/bound_ms {ms / bound:.2f} "
+                          f"simt_ms/ms {simt_ms / ms:.2f}; {banded_work(op, shape, p, s)}",
+                          flush=True)
+                    if case == "train" and not ms < simt_ms:
+                        raise AssertionError(f"{name} is slower than {name}_simt at {shape}")
     return report
 
 
@@ -186,7 +271,7 @@ def check_function() -> None:
     from unflow_tpu_torch.ops.correlation import correlation, displacement_count
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    shape, p, s = (2, 24, 75, 64), 8, 2
+    shape, p, s = (2, 24, 75, 64), 20, 2
     d = displacement_count(p, s)
     for dtype in (torch.float32, torch.bfloat16):
         f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype).requires_grad_()
@@ -217,6 +302,14 @@ def synthetic_frames(n: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     return (im1.permute(0, 2, 3, 1).numpy().copy(), im2.permute(0, 2, 3, 1).numpy().copy())
 
 
+def simt_launches() -> int:
+    """Launches of the FP32-core twins since the counts were reset: a main
+    path whose geometry the tensor-core kernels take must make none."""
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts
+
+    return sum(v for k, v in launch_counts().items() if k.endswith("_simt"))
+
+
 def relative_l2(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
@@ -239,8 +332,8 @@ def run_cli(tmp: Path) -> int:
     flow = read_flo(tmp / "flow.flo")
     print(f"main path cli.infer bf16: rc {rc} launches {launch_counts()} "
           f"{time.perf_counter() - t:.2f} s", flush=True)
-    if rc != 0 or launches < 1:
-        raise AssertionError("cli.infer failed or did not launch the bf16 kernel")
+    if rc != 0 or launches < 1 or simt_launches():
+        raise AssertionError("cli.infer failed or did not launch the tensor-core bf16 kernel")
     if flow.shape != (*FRAME_HW, 2) or not np.isfinite(flow).all():
         raise AssertionError(f"bad flow from cli.infer: {flow.shape}")
     return launches
@@ -312,7 +405,7 @@ def run_eval(dtype: str, kernel: str, tolerance: float) -> tuple[int, float]:
     err = relative_l2(flow, want)
     print(f"main path predict_batch {dtype}: relative_l2_vs_plain {err:.3e} (tol {tolerance})",
           flush=True)
-    if launches < 1:
+    if launches < 1 or simt_launches():
         raise AssertionError(f"predict_batch {dtype} did not launch {kernel}")
     if flow.shape != (4, *FRAME_HW, 2) or not np.isfinite(flow).all():
         raise AssertionError(f"bad flow from predict_batch {dtype}")
@@ -335,27 +428,40 @@ def train_config(tmp: Path, **overrides):
     return cfg
 
 
-def run_train_cli(tmp: Path, dtype: str, steps: int, batch: int) -> dict[str, int]:
-    """``cli.train`` in-process; returns the launch counts of the run."""
+def run_train_cli(tmp: Path, dtype: str, steps: int, batch: int,
+                  corr_stride: int | None = None) -> dict[str, int]:
+    """``cli.train`` in-process; returns the launch counts of the run, which
+    must be ``steps`` for each of the three kernels that the dispatch picks
+    for this dtype and displacement grid, and 0 for every other kernel.
+    ``corr_stride`` sets the config key of that name (the config's is 2)."""
     from unflow_tpu_torch.cli.train import main as train_main
-    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+    from unflow_tpu_torch.models import DTYPES
+    from unflow_tpu_torch.ops.cuda.correlation import (
+        kernel_name,
+        launch_counts,
+        reset_launch_counts,
+    )
 
     cfg = train_config(tmp)
-    name = f"smoke_{dtype}"
+    stride = corr_stride or cfg.train.corr_stride
+    name = f"smoke_{dtype}_s{stride}"
     reset_launch_counts()
     t = time.perf_counter()
     rc = train_main(["--config", str(tmp / "train.ini"), "--ex", name,
                      "--set", f"compute_dtype={dtype}", "--set", f"batch_size={batch}",
+                     "--set", f"corr_stride={stride}",
                      "--set", f"num_iters={steps}", "--set", f"display_interval={min(4, steps)}"])
     torch.cuda.synchronize()
     counts = launch_counts()
-    suffix = {"bfloat16": "bf16", "float32": "f32"}[dtype]
-    mine = {k: v for k, v in counts.items() if k.endswith(suffix)}
+    # the correlation sees FlowNetC's conv3 maps: 256 channels
+    expected = {kernel_name(op, DTYPES[dtype], 256, cfg.train.max_displacement, stride)
+                for op in ("fwd", "bwd_f1", "bwd_f2")}
+    mine = {k: v for k, v in counts.items() if v}
     metrics = cfg.experiment_dir(name) / "metrics.jsonl"
     records = [json.loads(line) for line in metrics.read_text().splitlines()]
-    print(f"train path cli.train {dtype} 320x1152 batch {batch}: rc {rc} steps {steps} "
-          f"launches {mine} {time.perf_counter() - t:.2f} s", flush=True)
-    if rc != 0 or any(v != steps for v in mine.values()) or len(mine) != 3:
+    print(f"train path cli.train {dtype} 320x1152 batch {batch} corr_stride {stride}: rc {rc} "
+          f"steps {steps} launches {mine} {time.perf_counter() - t:.2f} s", flush=True)
+    if rc != 0 or set(mine) != expected or any(v != steps for v in mine.values()):
         raise AssertionError(f"cli.train {dtype} did not launch each kernel once per step: {counts}")
     last = records[-1]
     print(f"train path cli.train {dtype}: step {last['step']} loss {last['loss']:.5g} "
@@ -377,7 +483,8 @@ def host_batches(batch: int, count: int):
     return batches
 
 
-def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float) -> None:
+def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
+                   corr_stride: int = 2) -> None:
     """One train step through the kernels against the same step through the
     plain correlation: same parameters, batch and step seed."""
     from unflow_tpu_torch.models import build_model, init_params
@@ -388,13 +495,13 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float) -> None:
     params = None
     for impl in ("cuda", "torch"):
         cfg = train_config(tmp, compute_dtype=dtype, batch_size=batch, corr_impl=impl,
-                           num_iters=1, display_interval=1)
+                           corr_stride=corr_stride, num_iters=1, display_interval=1)
         if params is None:
             model = build_model(cfg, "cpu")
             init_params(model, torch.Generator().manual_seed(5))
             params = model.state_dict()
-        trainer = Trainer(cfg, tmp / f"twin_{dtype}_{impl}", itertools.cycle(batches), device="cuda",
-                          params=params)
+        trainer = Trainer(cfg, tmp / f"twin_{dtype}_s{corr_stride}_{impl}", itertools.cycle(batches),
+                          device="cuda", params=params)
         logs = trainer.run()
         grads = torch.cat([p.grad.flatten() for p in trainer.model.parameters()])
         results[impl] = (logs["loss"], logs["grad_norm"], grads)
@@ -404,7 +511,7 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float) -> None:
         "grad_norm": abs(norm_a - norm_b) / abs(norm_b),
         "gradient_l2": (torch.linalg.vector_norm(g_a - g_b) / torch.linalg.vector_norm(g_b)).item(),
     }
-    print(f"train step vs plain twin {dtype} batch {batch}: loss {loss_a:.6g} vs {loss_b:.6g}, "
+    print(f"train step vs plain twin {dtype} batch {batch} corr_stride {corr_stride}: loss {loss_a:.6g} vs {loss_b:.6g}, "
           f"grad_norm {norm_a:.6g} vs {norm_b:.6g}, relative differences "
           + " ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (tol {tolerance})", flush=True)
     if not (np.isfinite(loss_a) and all(v < tolerance for v in rel.values())):
@@ -457,9 +564,8 @@ def main() -> int:
     logs = build.build(sources)
     print(f"build {sources}: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in build.ptxas_summary(log):
+            print(f"  {name}: {line}")
 
     report = check_kernels()
     check_function()
@@ -480,8 +586,15 @@ def main() -> int:
                 if "bwd" in name:
                     report[name]["launches"] = count
                     report[name]["main_path"] = f"cli.train, {steps} step(s)"
+        # corr_stride=4 is a grid the tensor-core kernels do not take: the same
+        # entry point then goes through their FP32-core twins
+        for name, count in run_train_cli(tmp, "bfloat16", 2, 8, corr_stride=4).items():
+            if name.endswith("_simt"):
+                report[name]["launches"] = count
+                report[name]["main_path"] = "cli.train --set corr_stride=4, 2 step(s)"
         run_train_twin(tmp, "bfloat16", 8, 2e-2)
         run_train_twin(tmp, "float32", 2, 1e-4)
+        run_train_twin(tmp, "bfloat16", 8, 2e-2, corr_stride=4)
         run_train_timed(tmp)
 
     print(f"total {time.perf_counter() - t0:.1f} s")

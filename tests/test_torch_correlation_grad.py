@@ -147,3 +147,48 @@ def test_gradient_wrappers_check_the_cotangent():
         correlation_bwd_f1(torch.zeros(1, 4, 4, 9), f, 3, 2)
     with pytest.raises(ValueError, match="does not fit"):
         correlation_bwd_f2(torch.zeros(1, 4, 4, 8), f, 2, 2)
+
+
+def test_df2_hands_tensors_off_the_cpu_to_the_launch(monkeypatch):
+    # as the forward's test: meta tensors stand in for CUDA tensors
+    from unflow_tpu_torch.ops.cuda import correlation as wrappers
+
+    seen = []
+    monkeypatch.setattr(
+        wrappers, "_launch", lambda op, a, b, channels, p, s, kernel=None: seen.append(
+            (op, channels, wrappers.kernel_name(op, b.dtype, b.shape[3], p, s), kernel)
+        )
+    )
+    for c in (128, 8):
+        f = torch.empty((1, 4, 8, c), dtype=torch.bfloat16, device="meta")
+        g = torch.empty((1, 4, 8, 441), dtype=torch.bfloat16, device="meta")
+        correlation_bwd_f2(g, f, 20, 2)
+        correlation_bwd_f1(g, f, 20, 2)
+    correlation_bwd_f2(g.float(), f.float(), 20, 2)
+    assert seen == [
+        ("bwd_f2", 128, "corr_bwd_f2_bf16", None),
+        ("bwd_f1", 128, "corr_bwd_f1_bf16", None),
+        ("bwd_f2", 8, "corr_bwd_f2_bf16_simt", None),
+        ("bwd_f1", 8, "corr_bwd_f1_bf16", None),
+        ("bwd_f2", 8, "corr_bwd_f2_f32", None),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_function_goes_through_the_dispatch(dtype, monkeypatch):
+    """CorrelationFunction on tensors off the CPU reaches _launch once for the
+    forward and once per gradient, with no kernel forced."""
+    from unflow_tpu_torch.ops.cuda import correlation as wrappers
+
+    seen = []
+
+    def fake_launch(op, a, b, channels, p, s, kernel=None):
+        seen.append((wrappers.kernel_name(op, b.dtype, b.shape[3], p, s), kernel))
+        return torch.empty((*b.shape[:3], channels), dtype=b.dtype, device=b.device)
+
+    monkeypatch.setattr(wrappers, "_launch", fake_launch)
+    f1 = torch.empty((1, 4, 8, 32), dtype=dtype, device="meta", requires_grad=True)
+    f2 = torch.empty((1, 4, 8, 32), dtype=dtype, device="meta", requires_grad=True)
+    CorrelationFunction.apply(f1, f2, 20, 2).sum().backward()
+    suffix = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+    assert seen == [(f"corr_{op}_{suffix}", None) for op in ("fwd", "bwd_f1", "bwd_f2")]

@@ -1,4 +1,4 @@
-"""The port's six CUDA kernels and the autograd Function over them against
+"""The port's eight CUDA kernels and the autograd Function over them against
 their plain versions, on the card.
 
 Marked ``cuda``; each skips without an NVIDIA GPU. The file imports no JAX,
@@ -27,8 +27,17 @@ from unflow_tpu_torch.ops.cuda.correlation import (
 )
 
 # narrow and wide maps; a width that divides no tile with stride 1 and H < D;
-# a displacement grid (D = 45) wider than the forward's 21-column blocks
-GEOMETRIES = [((2, 8, 40, 16), 4, 2), ((1, 9, 75, 24), 5, 1), ((1, 6, 20, 8), 44, 2)]
+# a displacement grid (D = 45) wider than the forward's 21-column blocks;
+# stride 4 (D = 11), which every FP32-core kernel serves with its run-time
+# stride. In bf16 the tensor-core kernels take D = 21 with C a multiple of 16:
+# C = 16 below a tile, C = 64 across three column tiles with P = 20, C = 128
+# with stride 1 and a width that divides no tile. The others (C = 8, C = 24,
+# D = 5, 11 or 45) take the FP32-core kernels (*_simt)
+GEOMETRIES = [
+    ((2, 8, 40, 16), 4, 2), ((1, 9, 75, 24), 5, 1), ((1, 6, 20, 8), 44, 2),
+    ((1, 8, 70, 32), 20, 4), ((2, 9, 150, 256), 20, 4),
+    ((2, 8, 40, 16), 20, 2), ((1, 7, 150, 64), 20, 2), ((2, 5, 75, 128), 10, 1),
+]
 DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 0.02)]
 
 
@@ -56,10 +65,12 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, max_disp, stride, dtype, 
     a, b = _pair(shape, seed=4)
     f1 = torch.from_numpy(a).to(cuda_device, dtype)
     f2 = torch.from_numpy(b).to(cuda_device, dtype)
+    name = kernel_name("fwd", dtype, shape[3], max_disp, stride)
     before = launch_counts()
     with torch.inference_mode():
         got = correlation_fwd(f1, f2, max_disp, stride)
     torch.cuda.synchronize()
+    assert launch_counts()[name] == before[name] + 1
     assert sum(launch_counts().values()) == sum(before.values()) + 1
     _assert_close(got, correlation_torch(f1, f2, max_disp, stride), tol)
 
@@ -79,10 +90,11 @@ def test_cuda_gradient_kernel_matches_plain(
     rng = np.random.RandomState(5)
     f = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda_device, dtype)
     g = torch.from_numpy(rng.randn(*shape[:3], d * d).astype(np.float32)).to(cuda_device, dtype)
-    before = launch_counts()[kernel_name(op, dtype)]
+    name = kernel_name(op, dtype, shape[3], max_disp, stride)
+    before = launch_counts()[name]
     got = kernel(g, f, max_disp, stride)
     torch.cuda.synchronize()
-    assert launch_counts()[kernel_name(op, dtype)] == before + 1
+    assert launch_counts()[name] == before + 1
     assert got.dtype == dtype and got.shape == f.shape
     _assert_close(got, plain(g, f, max_disp, stride), tol)
 
@@ -112,7 +124,7 @@ def test_cuda_function_matches_autograd(cuda_device, dtype, tol, needs):
     torch.cuda.synchronize()
     after = launch_counts()
     for op, need in zip(("bwd_f1", "bwd_f2"), needs):
-        name = kernel_name(op, dtype)
+        name = kernel_name(op, dtype, shape[3], max_disp, stride)
         assert after[name] - before[name] == int(need)
     for x, y in zip(got, grads("torch")):
         _assert_close(x, y, tol)
@@ -127,3 +139,50 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         correlation_fwd(f.transpose(1, 2), f.transpose(1, 2), 2, 1)
     with pytest.raises(ValueError, match="one CUDA device"):
         correlation_bwd_f1(torch.zeros(1, 4, 8, 25), f, 2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,max_disp,stride,suffix",
+    [((2, 8, 40, 16), 20, 2, ""), ((1, 7, 150, 64), 20, 2, ""), ((2, 5, 75, 128), 10, 1, ""),
+     ((1, 6, 20, 8), 20, 2, "_simt"), ((1, 9, 75, 24), 10, 1, "_simt"),
+     ((1, 6, 20, 16), 44, 2, "_simt"), ((2, 8, 40, 16), 4, 2, "_simt"),
+     ((2, 9, 150, 256), 20, 4, "_simt")],
+)
+def test_cuda_bf16_dispatch_by_launch_count(cuda_device, shape, max_disp, stride, suffix):
+    """bf16 maps the tensor-core kernels take launch them and no twin; the
+    others launch the FP32-core twins and no tensor-core kernel."""
+    d = displacement_count(max_disp, stride)
+    rng = np.random.RandomState(8)
+    f = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(rng.randn(*shape[:3], d * d).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    before = launch_counts()
+    fwd = correlation_fwd(f, f, max_disp, stride)
+    df2 = correlation_bwd_f2(g, f, max_disp, stride)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    assert grew == {f"corr_fwd_bf16{suffix}": 1, f"corr_bwd_f2_bf16{suffix}": 1}
+    _assert_close(fwd, correlation_torch(f, f, max_disp, stride), 0.02)
+    _assert_close(df2, correlation_bwd_f2_torch(g, f, max_disp, stride), 0.02)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,max_disp,stride", [((2, 8, 40, 16), 20, 2), ((2, 5, 75, 128), 10, 1)])
+def test_cuda_twins_agree_past_the_dispatch(cuda_device, shape, max_disp, stride):
+    """A forced ``*_simt`` launch computes what the tensor-core kernel does, to
+    bf16 rounding; forcing a tensor-core kernel on what it does not take raises."""
+    d = displacement_count(max_disp, stride)
+    rng = np.random.RandomState(9)
+    f = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(rng.randn(*shape[:3], d * d).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    _assert_close(correlation_fwd(f, f, max_disp, stride, kernel="corr_fwd_bf16_simt"),
+                  correlation_fwd(f, f, max_disp, stride), 0.02)
+    _assert_close(correlation_bwd_f2(g, f, max_disp, stride, kernel="corr_bwd_f2_bf16_simt"),
+                  correlation_bwd_f2(g, f, max_disp, stride), 0.02)
+    narrow = f[..., :8].contiguous()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        correlation_fwd(narrow, narrow, max_disp, stride, kernel="corr_fwd_bf16")
+    with pytest.raises(RuntimeError, match="launch failed"):  # D = 9
+        correlation_fwd(f, f, 4 * stride, stride, kernel="corr_fwd_bf16")
+    with pytest.raises(ValueError, match="is no kernel of fwd"):
+        correlation_fwd(f, f, max_disp, stride, kernel="corr_bwd_f2_bf16")

@@ -8,7 +8,8 @@
 //   * unflow_tpu/ops/pallas/correlation_mxu.py::corr_bwd_f1_mxu (bf16, "B5"):
 //     unflow_corr_bwd_f1_bf16;
 //   * unflow_tpu/ops/pallas/correlation_mxu.py::corr_bwd_f2_mxu (bf16, "B6"):
-//     unflow_corr_bwd_f2_bf16.
+//     unflow_corr_bwd_f2_bf16_simt, for the geometries that the tensor-core
+//     kernel of correlation_bwd_f2_mma.cu does not take.
 //
 // With NHWC maps (B, H, W, C), the cotangent g (B, H, W, D*D) of the cost
 // volume (channel i*D + j, dy = s*i - P, dx = s*j - P, D = 2*(P/s) + 1):
@@ -50,9 +51,10 @@
 // that stage the same cotangent tile run together and find it in L2.
 // Each thread writes its 8 contiguous channels with one or two 16-byte
 // stores.
-// Not done yet: tensor cores for bf16 and register tiling across x (columns
-// x and x + s share map values), which would cut the shared-memory reads
-// per FMA from 9/8.
+// Not done yet: tensor cores for the bf16 gradient to f1 (the gradient to f2
+// has them, in correlation_bwd_f2_mma.cu) and register tiling across x
+// (columns x and x + s share map values), which would cut the shared-memory
+// reads per FMA from 9/8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -349,8 +351,8 @@ int unflow_corr_bwd_f1_bf16(const void* g, const void* f2, void* df1, int B, int
   return launch<__nv_bfloat16, Wrt::kF1>(g, f2, df1, B, H, W, C, P, s, stream);
 }
 
-int unflow_corr_bwd_f2_bf16(const void* g, const void* f1, void* df2, int B, int H, int W, int C,
-                            int P, int s, void* stream) {
+int unflow_corr_bwd_f2_bf16_simt(const void* g, const void* f1, void* df2, int B, int H, int W,
+                                 int C, int P, int s, void* stream) {
   return launch<__nv_bfloat16, Wrt::kF2>(g, f1, df2, B, H, W, C, P, s, stream);
 }
 

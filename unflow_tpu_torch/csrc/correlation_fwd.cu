@@ -4,8 +4,9 @@
 //   * unflow_tpu/ops/pallas/correlation.py::_corr_fwd_chunk (f32, "B1"):
 //     instantiated here as unflow_corr_fwd_f32;
 //   * unflow_tpu/ops/pallas/correlation_mxu.py::corr_fwd_mxu (bf16, "B4"):
-//     instantiated here as unflow_corr_fwd_bf16 (bf16 in, f32 sums over all
-//     C channels, bf16 out).
+//     instantiated here as unflow_corr_fwd_bf16_simt (bf16 in, f32 sums over
+//     all C channels, bf16 out) for the geometries that the tensor-core
+//     kernel of correlation_fwd_mma.cu does not take.
 //
 // Computes, for NHWC inputs (B, H, W, C) and D = 2*(P/s) + 1,
 //
@@ -34,8 +35,9 @@
 // 63 FMAs; each f2 value one, with lanes on consecutive words (no bank
 // conflicts). The results go through shared memory so that each block
 // writes its contiguous (32, D*D) slice of the output with coalesced stores.
-// Not done yet: tensor cores for bf16 and register tiling across x, which
-// would cut the shared-memory reads per FMA.
+// Not done yet: register tiling across x, which would cut the shared-memory
+// reads per FMA (bf16 maps of the usual widths run on the tensor cores, in
+// correlation_fwd_mma.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,9 +100,9 @@ __host__ __device__ constexpr int window_cols(int s) { return kTx + s * (kDj - 1
 __host__ __device__ constexpr int window_stride(int s) { return window_cols(s) | 1; }
 
 // S > 0 fixes the stride at compile time, so that every shared-memory read
-// of the inner loop is one base register plus an immediate offset (with a
-// run-time stride the 3 x 8 x 21 addresses need registers of their own and
-// spill); S == 0 takes the stride `s` at run time.
+// of the inner loop is one base register plus an immediate offset. S == 0
+// takes the stride `s` at run time and keeps the channel loop rolled: unrolled,
+// its 3 x 8 x 21 addresses need registers of their own and spill.
 template <typename T, int S>
 __global__ void __launch_bounds__(kThreads)
 corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2, T* __restrict__ out,
@@ -155,7 +157,7 @@ corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2, T* __restric
       for (int k = 0; k < kCk; ++k) f2s[(il * kCk + k) * colp + col] = v[k];
     }
     __syncthreads();
-#pragma unroll
+#pragma unroll(S > 0 ? kCk : 1)
     for (int k = 0; k < kCk; ++k) {
       const float a = f1s[k * kTx + lane];
 #pragma unroll
@@ -242,8 +244,8 @@ int unflow_corr_fwd_f32(const void* f1, const void* f2, void* out, int B, int H,
   return launch<float>(f1, f2, out, B, H, W, C, P, s, stream);
 }
 
-int unflow_corr_fwd_bf16(const void* f1, const void* f2, void* out, int B, int H, int W, int C,
-                         int P, int s, void* stream) {
+int unflow_corr_fwd_bf16_simt(const void* f1, const void* f2, void* out, int B, int H, int W, int C,
+                              int P, int s, void* stream) {
   return launch<__nv_bfloat16>(f1, f2, out, B, H, W, C, P, s, stream);
 }
 

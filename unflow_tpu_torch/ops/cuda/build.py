@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled for Hopper
 (``sm_90a``) into ``_build/<name>-<hash>.so``, where the hash covers the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Nothing is built when a module is imported: the first call
+source, every header under ``csrc/`` (``*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is. Nothing is built when a module is imported: the first call
 that needs a kernel builds it (the CPU tests never do).
 """
 
@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -42,6 +43,8 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # any source may include any of them
+        digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -87,3 +90,30 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LIBRARIES[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_KERNEL = re.compile(r"\d+(corr_\w+_kernel)I(.*?)EEv")
+_TEMPLATE_ARG = re.compile(r"Li(\d+)E|13(__nv_bfloat16)|(f)")
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name with its
+    template arguments, registers per thread and spill bytes."""
+    lines, name = [], None
+    for line in log.splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            kernel = _KERNEL.search(entry.group(1))
+            name = entry.group(1)
+            if kernel:
+                args = [a or ("bf16" if b else "float") for a, b, _ in _TEMPLATE_ARG.findall(kernel.group(2))]
+                name = f"{kernel.group(1)}<{', '.join(args)}>"
+            spills = "?"
+        elif name and "spill stores" in line:
+            spills = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            registers = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"{name}: {registers} registers; {spills}")
+            name = None
+    return lines

@@ -1,14 +1,25 @@
-"""Wrappers of the CUDA correlation kernels (``csrc/correlation_fwd.cu`` and
-``csrc/correlation_bwd.cu``) and the ``torch.autograd.Function`` over them.
+"""Wrappers of the CUDA correlation kernels under ``csrc/`` and the
+``torch.autograd.Function`` over them.
 
-Each kernel is one template instantiated for float32 and for bfloat16 (bf16
-in, f32 sums, bf16 out), the two dtype contracts of the JAX package's TPU
-kernels:
+Eight kernels. ``correlation_fwd.cu`` and ``correlation_bwd.cu`` hold one
+template per function, run on the FP32 cores and instantiated for float32 and
+for bfloat16 (bf16 in, f32 sums, bf16 out), the two dtype contracts of the JAX
+package's TPU kernels:
 
   * forward: ``ops/pallas/correlation.py::_corr_fwd_chunk`` (f32) and
     ``ops/pallas/correlation_mxu.py::corr_fwd_mxu`` (bf16);
   * gradient to f1: ``_corr_bwd_f1_chunk`` (f32), ``corr_bwd_f1_mxu`` (bf16);
   * gradient to f2: ``_corr_bwd_f2_chunk`` (f32), ``corr_bwd_f2_mxu`` (bf16).
+
+For the bf16 forward and the bf16 gradient to f2 there is a second kernel each
+on the tensor cores (``correlation_fwd_mma.cu``, ``correlation_bwd_f2_mma.cu``:
+the banded matrix product of :mod:`unflow_tpu_torch.ops.correlation_banded`).
+They carry the names ``corr_fwd_bf16`` and ``corr_bwd_f2_bf16``; the FP32-core
+instantiations are ``corr_fwd_bf16_simt`` and ``corr_bwd_f2_bf16_simt``.
+:func:`tensor_core_ok` decides between the two from the dtype and the
+geometry alone, as ``_mxu_ok`` does in the JAX package. It is a dispatch and
+no fallback: a launch that fails raises, and nothing switches kernels on an
+error.
 
 :class:`CorrelationFunction` takes the place of the ``custom_vjp``
 ``correlation_pallas``. Each launch adds one to its kernel's entry in
@@ -30,22 +41,60 @@ from unflow_tpu_torch.ops.correlation import (
     correlation_torch,
     displacement_count,
 )
+from unflow_tpu_torch.ops.correlation_banded import (
+    BWD_F2_ROWS_CHOICES,
+    FWD_ROWS_CHOICES,
+    row_groups,
+    tensor_core_geometry_ok,
+    tile_count,
+)
 
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# op -> source under csrc/
+# op -> source under csrc/ of its FP32-core kernel
 SOURCES = {"fwd": "correlation_fwd", "bwd_f1": "correlation_bwd", "bwd_f2": "correlation_bwd"}
+# op -> source of its bf16 tensor-core kernel
+TENSOR_CORE_SOURCES = {"fwd": "correlation_fwd_mma", "bwd_f2": "correlation_bwd_f2_mma"}
 # kernel name -> (source, C symbol)
 KERNELS = {
     f"corr_{op}_{suffix}": (source, f"unflow_corr_{op}_{suffix}")
     for op, source in SOURCES.items()
     for suffix in _DTYPE_SUFFIX.values()
 }
+for _op, _source in TENSOR_CORE_SOURCES.items():
+    KERNELS[f"corr_{_op}_bf16_simt"] = (SOURCES[_op], f"unflow_corr_{_op}_bf16_simt")
+    KERNELS[f"corr_{_op}_bf16"] = (_source, f"unflow_corr_{_op}_bf16")
+_TENSOR_CORE_KERNELS = frozenset(f"corr_{op}_bf16" for op in TENSOR_CORE_SOURCES)
 _LAUNCHES = {name: 0 for name in KERNELS}
 
 
-def kernel_name(op: str, dtype: torch.dtype) -> str:
-    """Name of the kernel of ``op`` (``fwd``, ``bwd_f1``, ``bwd_f2``) for ``dtype``."""
-    return f"corr_{op}_{_DTYPE_SUFFIX[dtype]}"
+def tensor_core_ok(dtype: torch.dtype, c: int, max_displacement: int, stride: int) -> bool:
+    """Whether bf16 maps of ``c`` channels take the tensor-core kernels: bf16,
+    stride 1 or 2, 21 displacements per axis (FlowNetC's grid) and a multiple
+    of 16 channels up to 256. Everything else takes the FP32-core kernels."""
+    return dtype == torch.bfloat16 and tensor_core_geometry_ok(c, max_displacement, stride)
+
+
+def kernel_name(op: str, dtype: torch.dtype, c: int, max_displacement: int, stride: int) -> str:
+    """Name of the kernel of ``op`` (``fwd``, ``bwd_f1``, ``bwd_f2``) for maps
+    of ``dtype`` with ``c`` channels and this displacement grid."""
+    name = f"corr_{op}_{_DTYPE_SUFFIX[dtype]}"
+    if name in _TENSOR_CORE_KERNELS and not tensor_core_ok(dtype, c, max_displacement, stride):
+        name += "_simt"
+    return name
+
+
+def _named_kernel(
+    op: str, dtype: torch.dtype, c: int, max_displacement: int, stride: int, kernel: str | None
+) -> str:
+    """The kernel to launch: the dispatch's, or ``kernel`` where the caller
+    names one. Only a kernel of the same ``op`` and ``dtype`` can be named (the
+    dispatch's own or its ``_simt`` twin): another op's symbol would write an
+    output of another shape."""
+    base = f"corr_{op}_{_DTYPE_SUFFIX[dtype]}"
+    allowed = {name for name in (base, base + "_simt") if name in KERNELS}
+    if kernel is not None and kernel not in allowed:
+        raise ValueError(f"{kernel!r} is no kernel of {op} in {dtype}: {sorted(allowed)}")
+    return kernel or kernel_name(op, dtype, c, max_displacement, stride)
 
 
 def launch_counts() -> dict[str, int]:
@@ -75,19 +124,30 @@ def _check_geometry(max_displacement: int, stride: int) -> None:
 
 
 def _launch(
-    op: str, a: torch.Tensor, b: torch.Tensor, out_channels: int, max_displacement: int, stride: int
+    op: str, a: torch.Tensor, b: torch.Tensor, out_channels: int, max_displacement: int, stride: int,
+    kernel: str | None = None,
 ) -> torch.Tensor:
     """Check two CUDA inputs, allocate the output ``(B, H, W, out_channels)``
-    and launch the kernel of ``op`` on the current stream of their device.
-    The map's shape ``(B, H, W, C)`` is ``b``'s."""
-    if not (a.is_cuda and b.device == a.device):
-        raise ValueError(f"{op}: inputs must lie on one CUDA device: {a.device} vs {b.device}")
+    and launch the kernel of ``op`` on the current stream of their device:
+    the one :func:`kernel_name` picks, or ``kernel`` where the caller names
+    one. The map's shape ``(B, H, W, C)`` is ``b``'s."""
     if b.dtype not in _DTYPE_SUFFIX or a.dtype != b.dtype:
         raise TypeError(f"CUDA correlation takes float32 or bfloat16: {a.dtype}, {b.dtype}")
+    batch, h, w, c = b.shape
+    name = _named_kernel(op, b.dtype, c, max_displacement, stride, kernel)
+    if not (a.is_cuda and b.device == a.device):
+        raise ValueError(f"{op}: inputs must lie on one CUDA device: {a.device} vs {b.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"{op}: the CUDA correlation needs contiguous NHWC inputs")
-    name = kernel_name(op, b.dtype)
-    batch, h, w, c = b.shape
+    if name in _TENSOR_CORE_KERNELS:
+        # the banded kernels' grid is (column tiles, row groups, batch); the
+        # fewest rows per block give the most row groups
+        choices = FWD_ROWS_CHOICES if op == "fwd" else BWD_F2_ROWS_CHOICES
+        groups = row_groups(h, stride, min(choices))
+        if max(groups, batch) > 65535 or tile_count(w) * groups * batch == 0:
+            raise ValueError(f"{name}: no launch grid for maps {tuple(b.shape)}")
+        if a.data_ptr() % 16 or b.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte aligned tensors")
     out = torch.empty((batch, h, w, out_channels), dtype=b.dtype, device=b.device)
     # autograd runs backward on a thread of its own: enter the device there too
     with torch.cuda.device(b.device):
@@ -102,13 +162,16 @@ def _launch(
 
 
 def correlation_fwd(
-    f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride: int = 2
+    f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride: int = 2,
+    kernel: str | None = None,
 ) -> torch.Tensor:
     """Cost volume ``(B, H, W, D*D)`` of NHWC feature maps ``(B, H, W, C)``.
 
     CUDA tensors go through the kernel (or the call raises); CPU tensors go
     through the plain version :func:`correlation_torch`. The result carries
     no autograd graph: :class:`CorrelationFunction` adds the gradients.
+    ``kernel`` names the kernel to launch past :func:`tensor_core_ok` (a check
+    that times ``corr_fwd_bf16_simt`` beside ``corr_fwd_bf16``).
     """
     _check_geometry(max_displacement, stride)
     if f1.shape != f2.shape or f1.dim() != 4:
@@ -116,7 +179,7 @@ def correlation_fwd(
     if f1.device.type == "cpu" and f2.device.type == "cpu":
         return correlation_torch(f1, f2, max_displacement, stride)
     d = displacement_count(max_displacement, stride)
-    return _launch("fwd", f1, f2, d * d, max_displacement, stride)
+    return _launch("fwd", f1, f2, d * d, max_displacement, stride, kernel)
 
 
 def _check_cotangent(g: torch.Tensor, f: torch.Tensor, max_displacement: int, stride: int) -> None:
@@ -141,14 +204,15 @@ def correlation_bwd_f1(
 
 
 def correlation_bwd_f2(
-    g: torch.Tensor, f1: torch.Tensor, max_displacement: int = 20, stride: int = 2
+    g: torch.Tensor, f1: torch.Tensor, max_displacement: int = 20, stride: int = 2,
+    kernel: str | None = None,
 ) -> torch.Tensor:
     """Gradient to ``f2``, in the dtype of ``f1``; routes as
-    :func:`correlation_bwd_f1`."""
+    :func:`correlation_bwd_f1`. ``kernel`` as in :func:`correlation_fwd`."""
     _check_cotangent(g, f1, max_displacement, stride)
     if g.device.type == "cpu" and f1.device.type == "cpu":
         return correlation_bwd_f2_torch(g, f1, max_displacement, stride)
-    return _launch("bwd_f2", g, f1, f1.shape[3], max_displacement, stride)
+    return _launch("bwd_f2", g, f1, f1.shape[3], max_displacement, stride, kernel)
 
 
 class CorrelationFunction(torch.autograd.Function):
