@@ -7,17 +7,17 @@ Phases; any failure raises and the script exits non-zero without a result line:
 
   1. build   -- nvcc compiles every CUDA source of the port for sm_90a, one
                 process per source, all started together.
-  2. kernels -- each of the eight kernels (correlation forward, gradient to f1,
-                gradient to f2; float32 and bfloat16; for the bfloat16 forward and
-                gradient to f2 the tensor-core kernel and its FP32-core twin
-                ``*_simt``, called past the dispatch) against its plain PyTorch
+  2. kernels -- each of the nine kernels (correlation forward, gradient to f1,
+                gradient to f2; float32 and bfloat16, and in bfloat16 both the
+                tensor-core kernel and its FP32-core twin ``*_simt``, called
+                past the dispatch) against its plain PyTorch
                 version on the card (tolerance 1e-5 * max|ref| in float32, 0.02 *
                 max|ref| in bfloat16), at the training geometry (16, 40, 144,
                 256), the eval geometry (4, 48, 160, 256), both with
                 max_displacement 20 and stride 2, an odd case (W a multiple
                 of no tile, stride 1), and the training geometry with stride 4,
                 which the dispatch sends to the FP32-core kernels' run-time
-                stride (in bfloat16 to the two ``*_simt`` twins; their reported
+                stride (in bfloat16 to the three ``*_simt`` twins; their reported
                 numbers are from this case). Times are medians of 20 launches,
                 each timed with CUDA events after warm-up. A tensor-core kernel
                 that is slower than its twin at the training geometry fails the run.
@@ -38,7 +38,7 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 ``metrics.jsonl``; then one f32 step at batch 2, which must launch
                 the three f32 kernels; then two bf16 steps with ``corr_stride=4``,
                 a displacement grid the tensor-core kernels do not take, which
-                must launch the two ``*_simt`` twins instead. Then one train
+                must launch the three ``*_simt`` twins instead. Then one train
                 step through the kernels against the same step through the plain
                 correlation (same parameters, batch and seed), in bf16, in f32
                 and in bf16 with ``corr_stride=4``: loss, grad_norm and the
@@ -80,6 +80,7 @@ REPLACES = {
     "corr_bwd_f1_bf16": "unflow_tpu/ops/pallas/correlation_mxu.py:281",
     "corr_bwd_f2_bf16": "unflow_tpu/ops/pallas/correlation_mxu.py:389",
     "corr_fwd_bf16_simt": "unflow_tpu/ops/pallas/correlation_mxu.py:187",
+    "corr_bwd_f1_bf16_simt": "unflow_tpu/ops/pallas/correlation_mxu.py:281",
     "corr_bwd_f2_bf16_simt": "unflow_tpu/ops/pallas/correlation_mxu.py:389",
 }
 # the geometry each op's reported time is taken at: that of its main path
@@ -91,7 +92,7 @@ TRAIN_STEPS = 12
 PROFILE_GROUPS = {
     "correlation kernels (this repo)": (
         "corr_fwd_kernel", "corr_bwd_f1_kernel", "corr_bwd_f2_kernel", "corr_fwd_mma_kernel",
-        "corr_bwd_f2_mma_kernel",
+        "corr_bwd_f1_mma_kernel", "corr_bwd_f2_mma_kernel",
     ),
     "copies": ("Memcpy", "Memset"),
     "cuDNN convolutions and their layout kernels": (
@@ -149,7 +150,7 @@ def banded_work(op: str, shape, p: int, s: int) -> str:
 
     b, h, w, c = shape
     d = 2 * (p // s) + 1
-    choices = banded.FWD_ROWS_CHOICES if op == "fwd" else banded.BWD_F2_ROWS_CHOICES
+    choices = banded.ROWS_CHOICES[op]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = banded.rows_per_block(choices, h, w, b, s, sms)
     groups = banded.row_groups(h, s, rows)
@@ -168,10 +169,10 @@ def banded_work(op: str, shape, p: int, s: int) -> str:
         for group in range(groups):
             ys = [y for y in banded.group_rows(group, s, rows) if y < h]
             # source rows of the group inside the map, and (output row, source row) meetings
-            if op == "fwd":
-                meets = [(y, y + s * i - p) for y in ys for i in range(d)]
-            else:
+            if op == "bwd_f2":
                 meets = [(u, u + p - s * i) for u in ys for i in range(d)]
+            else:
+                meets = [(y, y + s * i - p) for y in ys for i in range(d)]
             meets = [(a, src) for a, src in meets if 0 <= src < h]
             staged += len({src for _, src in meets}) * pixels * c * 2
             per_meeting = (c // 16) * 5 if op == "fwd" else 3 * (c // 8)

@@ -164,7 +164,7 @@ def test_tensor_core_ok(dtype, c, max_disp, stride, ok):
         ("bwd_f2", torch.bfloat16, 256, 20, 4, "corr_bwd_f2_bf16_simt"),
         ("bwd_f2", torch.float32, 24, 4, 2, "corr_bwd_f2_f32"),
         ("bwd_f1", torch.bfloat16, 256, 20, 2, "corr_bwd_f1_bf16"),
-        ("bwd_f1", torch.bfloat16, 8, 4, 2, "corr_bwd_f1_bf16"),  # one bf16 kernel only
+        ("bwd_f1", torch.bfloat16, 8, 4, 2, "corr_bwd_f1_bf16_simt"),
         ("bwd_f1", torch.float32, 8, 4, 2, "corr_bwd_f1_f32"),
     ],
 )
@@ -174,14 +174,17 @@ def test_kernel_chosen_for_dtype_and_geometry(op, dtype, c, max_disp, stride, wa
 
 
 def test_eight_kernels_with_a_count_each():
+    # nine since the gradient to f1 has its tensor-core kernel too
     names = {
         "corr_fwd_f32", "corr_fwd_bf16", "corr_fwd_bf16_simt",
-        "corr_bwd_f1_f32", "corr_bwd_f1_bf16",
+        "corr_bwd_f1_f32", "corr_bwd_f1_bf16", "corr_bwd_f1_bf16_simt",
         "corr_bwd_f2_f32", "corr_bwd_f2_bf16", "corr_bwd_f2_bf16_simt",
     }
-    assert set(KERNELS) == names == set(launch_counts())
-    for op, source in (("fwd", "correlation_fwd"), ("bwd_f2", "correlation_bwd")):
-        assert KERNELS[f"corr_{op}_bf16"] == (f"correlation_{op}_mma", f"unflow_corr_{op}_bf16")
+    assert len(names) == 9 and set(KERNELS) == names == set(launch_counts())
+    for op, source, mma in (("fwd", "correlation_fwd", "correlation_fwd_mma"),
+                            ("bwd_f1", "correlation_bwd", "correlation_bwd_mma"),
+                            ("bwd_f2", "correlation_bwd", "correlation_bwd_mma")):
+        assert KERNELS[f"corr_{op}_bf16"] == (mma, f"unflow_corr_{op}_bf16")
         assert KERNELS[f"corr_{op}_bf16_simt"] == (source, f"unflow_corr_{op}_bf16_simt")
     # each symbol is exported by its source, and by no other
     for name, (source, symbol) in KERNELS.items():
@@ -284,3 +287,37 @@ ptxas info    : Used 72 registers, used 1 barriers, 2272 bytes cumulative stack 
         "corr_fwd_kernel<bf16, 0>: 72 registers; "
         "2272 bytes stack frame, 2368 bytes spill stores, 2376 bytes spill loads",
     ]
+
+
+def test_forward_model_mirrors_the_tile_of_the_source():
+    # the CPU model of the register-tiled forward uses the tile the source builds
+    from unflow_tpu_torch.ops import correlation_tiled as tiled
+
+    source = (build.CSRC_DIR / "correlation_fwd.cu").read_text()
+    assert f"constexpr int kGroups = {tiled.GROUPS};" in source
+    assert f"constexpr int kRy = {tiled.ROWS};" in source
+    assert f"constexpr int kDi = {tiled.DISP_ROWS};" in source
+    assert f"constexpr int kCols = {tiled.COLS};" in source
+
+
+def test_sources_build_one_way_only():
+    # no macro switches a part of a kernel: what the port loads is what a
+    # source holds (a header's include guard aside)
+    for path in sorted(build.CSRC_DIR.glob("*.cu")):
+        switches = [line for line in path.read_text().splitlines()
+                    if line.lstrip().startswith(("#if", "#define"))]
+        assert not switches, (path.name, switches)
+    assert "-D" not in " ".join(build.build_command("correlation_fwd", build.library_path("correlation_fwd")))
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result(capsys):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", build.PACKAGE_DIR.parent / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script would run")
+    assert chip_smoke.main() == 1
+    captured = capsys.readouterr()
+    assert captured.out == "" and "no CUDA device" in captured.err

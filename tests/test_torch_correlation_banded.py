@@ -1,9 +1,9 @@
 """The banded-product model of the tensor-core correlation kernels
 (``unflow_tpu_torch/ops/correlation_banded.py``: the tiles, phases, windows,
 zero fill and band that ``csrc/correlation_fwd_mma.cu`` and
-``csrc/correlation_bwd_f2_mma.cu`` use) against the port's plain versions, the
-JAX package's plain version and its gradient, and the Pallas MXU kernels B4
-and B6 in interpret mode."""
+``csrc/correlation_bwd_mma.cu`` use) against the port's plain versions, the
+JAX package's plain version and its gradients, and the Pallas MXU kernels B4,
+B5 and B6 in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -12,9 +12,15 @@ import pytest
 import torch
 
 from unflow_tpu.ops.correlation import correlation_jnp
-from unflow_tpu.ops.pallas.correlation import _corr_bwd_f2_impl, _mxu_ok, correlation_pallas
+from unflow_tpu.ops.pallas.correlation import (
+    _corr_bwd_f1_impl,
+    _corr_bwd_f2_impl,
+    _mxu_ok,
+    correlation_pallas,
+)
 from unflow_tpu_torch.ops import correlation_banded as banded
 from unflow_tpu_torch.ops.correlation import (
+    correlation_bwd_f1_torch,
     correlation_bwd_f2_torch,
     correlation_torch,
     displacement_count,
@@ -22,6 +28,7 @@ from unflow_tpu_torch.ops.correlation import (
 from unflow_tpu_torch.ops.correlation_banded import (
     band_matrix,
     correlation_banded_torch,
+    correlation_bwd_f1_banded_torch,
     correlation_bwd_f2_banded_torch,
 )
 
@@ -75,6 +82,29 @@ def test_banded_df2_matches_plain_version(shape, max_disp, stride, rows):
     _assert_close(got.numpy(), correlation_bwd_f2_torch(c, a, max_disp, stride).numpy(), 1e-5)
 
 
+@pytest.mark.parametrize("rows", banded.BWD_F1_ROWS_CHOICES)
+@pytest.mark.parametrize("shape,max_disp,stride", CASES, ids=IDS)
+def test_banded_df1_matches_plain_version(shape, max_disp, stride, rows):
+    _, f2, g = _inputs(shape, max_disp, stride)
+    b, c = torch.from_numpy(f2), torch.from_numpy(g)
+    got = correlation_bwd_f1_banded_torch(c, b, max_disp, stride, rows)
+    _assert_close(got.numpy(), correlation_bwd_f1_torch(c, b, max_disp, stride).numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("wrt", ["f1", "f2"])
+def test_banded_gradients_do_not_depend_on_rows_per_block(wrt, rows):
+    # rows per block only regroup which source rows a block stages
+    shape, max_disp, stride = CASES[3]
+    f1, _, g = _inputs(shape, max_disp, stride, seed=3)
+    a, c = torch.from_numpy(f1), torch.from_numpy(g)
+    fn, plain = {
+        "f1": (correlation_bwd_f1_banded_torch, correlation_bwd_f1_torch),
+        "f2": (correlation_bwd_f2_banded_torch, correlation_bwd_f2_torch),
+    }[wrt]
+    _assert_close(fn(c, a, max_disp, stride, rows).numpy(), plain(c, a, max_disp, stride).numpy(), 1e-5)
+
+
 @pytest.mark.parametrize("shape,max_disp,stride", CASES, ids=IDS)
 def test_banded_forward_matches_jnp(shape, max_disp, stride):
     f1, f2, _ = _inputs(shape, max_disp, stride)
@@ -93,6 +123,34 @@ def test_banded_df2_matches_jax_grad(shape, max_disp, stride):
         torch.from_numpy(g), torch.from_numpy(f1), max_disp, stride
     )
     _assert_close(got.numpy(), want, 1e-5)
+
+
+@pytest.mark.parametrize("shape,max_disp,stride", CASES, ids=IDS)
+def test_banded_df1_matches_jax_grad(shape, max_disp, stride):
+    f1, f2, g = _inputs(shape, max_disp, stride)
+    want = jax.grad(
+        lambda a, b: jnp.sum(correlation_jnp(a, b, max_disp, stride) * g), argnums=0
+    )(jnp.asarray(f1), jnp.asarray(f2))
+    got = correlation_bwd_f1_banded_torch(
+        torch.from_numpy(g), torch.from_numpy(f2), max_disp, stride
+    )
+    _assert_close(got.numpy(), want, 1e-4)
+
+
+@pytest.mark.parametrize("shape,max_disp,stride", [((1, 8, 16, 128), 20, 2), ((1, 4, 16, 128), 10, 1)])
+def test_banded_df1_matches_pallas_bf16_mxu_kernel(shape, max_disp, stride):
+    # B5 corr_bwd_f1_mxu in interpret mode on the CPU, at the geometry its gate
+    # takes (see the test below); bf16 in, f32 sums, bf16 out on both sides
+    assert _mxu_ok(jnp.bfloat16, shape[1], shape[2], max_disp, stride, shape[3])
+    _, f2, g = _inputs(shape, max_disp, stride, seed=2)
+    want = _corr_bwd_f1_impl(
+        jnp.asarray(g).astype(jnp.bfloat16), jnp.asarray(f2).astype(jnp.bfloat16), max_disp, stride
+    ).astype(jnp.float32)
+    got = correlation_bwd_f1_banded_torch(
+        torch.from_numpy(g).bfloat16(), torch.from_numpy(f2).bfloat16(), max_disp, stride
+    )
+    assert got.dtype == torch.bfloat16
+    _assert_close(got.float().numpy(), want, 0.02)
 
 
 @pytest.mark.parametrize("shape,max_disp,stride", [((1, 8, 16, 128), 20, 2), ((1, 4, 16, 128), 10, 1)])
@@ -169,6 +227,26 @@ def test_band_matrix_is_zero_off_the_band_and_outside_the_map():
             assert a_hat[k, m] == float(on_band)
 
 
+def test_df1_band_matrix_holds_the_tile_rows_own_cotangent():
+    # zero off the band and where the tile row's pixel lies past the map; on the
+    # band, row k holds its pixel's D values of displacement row i in order
+    shape, p, s = (1, 3, 20, 16), 20, 2
+    d = displacement_count(p, s)
+    g = torch.arange(float(np.prod(shape[:3]) * d * d)).reshape(*shape[:3], d * d) + 1.0
+    i, phase = 2, 1
+    a_hat = band_matrix(g, row=1, i=i, x0=0, p=p, s=s, phase=phase, rt=0, wrt="f1")[0]
+    assert a_hat.shape == (banded.MMA_ROWS, banded.BAND_K)
+    for k in range(banded.MMA_ROWS):
+        x = banded.output_column(0, s, phase, k)
+        for m in range(banded.BAND_K):
+            if 0 <= m - k < d and x < shape[2]:
+                assert a_hat[k, m] == g[0, 1, x, i * d + (m - k)]
+            else:
+                assert a_hat[k, m] == 0.0
+    with pytest.raises(ValueError, match="wrt"):
+        band_matrix(g, 1, i, 0, p, s, phase, 0, wrt="f3")
+
+
 @pytest.mark.parametrize(
     "c,max_disp,stride,ok",
     [(256, 20, 2, True), (16, 10, 1, True), (64, 20, 2, True), (64, 8, 2, False),
@@ -181,12 +259,19 @@ def test_banded_geometry_gate(c, max_disp, stride, ok):
         z = torch.zeros(1, 2, 4, c)
         with pytest.raises(ValueError, match="banded"):
             correlation_banded_torch(z, z, max_disp, stride)
+        d = displacement_count(max_disp, stride)
+        with pytest.raises(ValueError, match="banded"):
+            correlation_bwd_f1_banded_torch(torch.zeros(1, 2, 4, d * d), z, max_disp, stride)
 
 
 def test_rows_per_block_follows_the_grid():
     # FlowNetC's train (16, 40x144) and eval (4, 48x160) maps fill a 132-SM card
     # with the larger choice; a small map takes the smaller one
     fwd, df2 = banded.FWD_ROWS_CHOICES, banded.BWD_F2_ROWS_CHOICES
+    df1 = banded.ROWS_CHOICES["bwd_f1"]
+    assert banded.rows_per_block(df1, 40, 144, 16, 2, 132) == 2
+    assert banded.rows_per_block(df1, 24, 75, 2, 1, 132) == 2
+    assert set(banded.ROWS_CHOICES) == {"fwd", "bwd_f1", "bwd_f2"}
     assert banded.rows_per_block(fwd, 40, 144, 16, 2, 132) == 4
     assert banded.rows_per_block(fwd, 48, 160, 4, 2, 132) == 4
     assert banded.rows_per_block(fwd, 24, 75, 2, 1, 132) == 2

@@ -169,7 +169,7 @@ def test_df2_hands_tensors_off_the_cpu_to_the_launch(monkeypatch):
         ("bwd_f2", 128, "corr_bwd_f2_bf16", None),
         ("bwd_f1", 128, "corr_bwd_f1_bf16", None),
         ("bwd_f2", 8, "corr_bwd_f2_bf16_simt", None),
-        ("bwd_f1", 8, "corr_bwd_f1_bf16", None),
+        ("bwd_f1", 8, "corr_bwd_f1_bf16_simt", None),
         ("bwd_f2", 8, "corr_bwd_f2_f32", None),
     ]
 

@@ -1,4 +1,4 @@
-"""The port's eight CUDA kernels and the autograd Function over them against
+"""The port's nine CUDA kernels and the autograd Function over them against
 their plain versions, on the card.
 
 Marked ``cuda``; each skips without an NVIDIA GPU. The file imports no JAX,
@@ -158,11 +158,13 @@ def test_cuda_bf16_dispatch_by_launch_count(cuda_device, shape, max_disp, stride
     g = torch.from_numpy(rng.randn(*shape[:3], d * d).astype(np.float32)).to(cuda_device, torch.bfloat16)
     before = launch_counts()
     fwd = correlation_fwd(f, f, max_disp, stride)
+    df1 = correlation_bwd_f1(g, f, max_disp, stride)
     df2 = correlation_bwd_f2(g, f, max_disp, stride)
     torch.cuda.synchronize()
     grew = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
-    assert grew == {f"corr_fwd_bf16{suffix}": 1, f"corr_bwd_f2_bf16{suffix}": 1}
+    assert grew == {f"corr_{op}_bf16{suffix}": 1 for op in ("fwd", "bwd_f1", "bwd_f2")}
     _assert_close(fwd, correlation_torch(f, f, max_disp, stride), 0.02)
+    _assert_close(df1, correlation_bwd_f1_torch(g, f, max_disp, stride), 0.02)
     _assert_close(df2, correlation_bwd_f2_torch(g, f, max_disp, stride), 0.02)
 
 
@@ -177,6 +179,8 @@ def test_cuda_twins_agree_past_the_dispatch(cuda_device, shape, max_disp, stride
     g = torch.from_numpy(rng.randn(*shape[:3], d * d).astype(np.float32)).to(cuda_device, torch.bfloat16)
     _assert_close(correlation_fwd(f, f, max_disp, stride, kernel="corr_fwd_bf16_simt"),
                   correlation_fwd(f, f, max_disp, stride), 0.02)
+    _assert_close(correlation_bwd_f1(g, f, max_disp, stride, kernel="corr_bwd_f1_bf16_simt"),
+                  correlation_bwd_f1(g, f, max_disp, stride), 0.02)
     _assert_close(correlation_bwd_f2(g, f, max_disp, stride, kernel="corr_bwd_f2_bf16_simt"),
                   correlation_bwd_f2(g, f, max_disp, stride), 0.02)
     narrow = f[..., :8].contiguous()
@@ -186,3 +190,51 @@ def test_cuda_twins_agree_past_the_dispatch(cuda_device, shape, max_disp, stride
         correlation_fwd(f, f, 4 * stride, stride, kernel="corr_fwd_bf16")
     with pytest.raises(ValueError, match="is no kernel of fwd"):
         correlation_fwd(f, f, max_disp, stride, kernel="corr_bwd_f2_bf16")
+    g8 = g[..., : 81].contiguous()  # D = 9
+    with pytest.raises(RuntimeError, match="launch failed"):
+        correlation_bwd_f1(g8, f, 4 * stride, stride, kernel="corr_bwd_f1_bf16")
+    with pytest.raises(ValueError, match="is no kernel of bwd_f1"):
+        correlation_bwd_f1(g, f, max_disp, stride, kernel="corr_bwd_f2_bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 64, 128, 256])
+@pytest.mark.parametrize("shape3,max_disp,stride", [((2, 7, 150), 20, 2), ((1, 23, 75), 10, 1),
+                                                     ((1, 5, 64), 20, 2), ((3, 2, 129), 10, 1)])
+def test_cuda_tensor_core_df1_matches_plain(cuda_device, shape3, max_disp, stride, c):
+    """``corr_bwd_f1_bf16`` over the channel counts it takes, at widths that
+    are no multiple of its 64-column tile, one tile exactly, and one column
+    past two tiles; an odd H, and an H above D."""
+    d = displacement_count(max_disp, stride)
+    rng = np.random.RandomState(10)
+    f = torch.from_numpy(rng.randn(*shape3, c).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(rng.randn(*shape3, d * d).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    before = launch_counts()["corr_bwd_f1_bf16"]
+    got = correlation_bwd_f1(g, f, max_disp, stride)
+    torch.cuda.synchronize()
+    assert launch_counts()["corr_bwd_f1_bf16"] == before + 1
+    _assert_close(got, correlation_bwd_f1_torch(g, f, max_disp, stride), 0.02)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize(
+    "shape,max_disp,stride",
+    [((2, 9, 150, 256), 20, 4), ((1, 8, 70, 32), 12, 4), ((1, 7, 45, 40), 3, 1),
+     ((1, 6, 33, 16), 6, 3), ((1, 5, 50, 12), 10, 5), ((1, 20, 40, 6), 24, 2),
+     ((1, 4, 20, 3), 9, 9)],
+)
+def test_cuda_forward_displacement_grids(cuda_device, shape, max_disp, stride, dtype, tol):
+    """The FP32-core forward at stride 4, at D below 21 (D = 11, 7, 5, 3), at
+    strides that divide no column group (3, 5, 9), at D = 25 (two blocks of
+    displacement columns) and at channel counts that are no multiple of 8
+    (staged without 16-byte copies)."""
+    a, b = _pair(shape, seed=11)
+    f1 = torch.from_numpy(a).to(cuda_device, dtype)
+    f2 = torch.from_numpy(b).to(cuda_device, dtype)
+    kernel = "corr_fwd_bf16_simt" if dtype == torch.bfloat16 else None
+    got = correlation_fwd(f1, f2, max_disp, stride, kernel=kernel)
+    torch.cuda.synchronize()
+    d = displacement_count(max_disp, stride)
+    assert got.shape == (*shape[:3], d * d)
+    _assert_close(got, correlation_torch(f1, f2, max_disp, stride), tol)

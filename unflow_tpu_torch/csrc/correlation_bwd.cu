@@ -6,10 +6,11 @@
 //   * unflow_tpu/ops/pallas/correlation.py::_corr_bwd_f2_chunk (f32, "B3"):
 //     unflow_corr_bwd_f2_f32;
 //   * unflow_tpu/ops/pallas/correlation_mxu.py::corr_bwd_f1_mxu (bf16, "B5"):
-//     unflow_corr_bwd_f1_bf16;
+//     unflow_corr_bwd_f1_bf16_simt;
 //   * unflow_tpu/ops/pallas/correlation_mxu.py::corr_bwd_f2_mxu (bf16, "B6"):
-//     unflow_corr_bwd_f2_bf16_simt, for the geometries that the tensor-core
-//     kernel of correlation_bwd_f2_mma.cu does not take.
+//     unflow_corr_bwd_f2_bf16_simt;
+//     the two bf16 instantiations for the geometries that the tensor-core
+//     kernels of correlation_bwd_mma.cu do not take.
 //
 // With NHWC maps (B, H, W, C), the cotangent g (B, H, W, D*D) of the cost
 // volume (channel i*D + j, dy = s*i - P, dx = s*j - P, D = 2*(P/s) + 1):
@@ -51,10 +52,10 @@
 // that stage the same cotangent tile run together and find it in L2.
 // Each thread writes its 8 contiguous channels with one or two 16-byte
 // stores.
-// Not done yet: tensor cores for the bf16 gradient to f1 (the gradient to f2
-// has them, in correlation_bwd_f2_mma.cu) and register tiling across x
-// (columns x and x + s share map values), which would cut the shared-memory
-// reads per FMA from 9/8.
+// Not done yet: register tiling across x (columns x and x + s share map
+// values, as the forward of correlation_fwd.cu uses), which would cut the
+// shared-memory reads per FMA from 9/8. The bf16 maps of the usual widths run
+// on the tensor cores, in correlation_bwd_mma.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -346,8 +347,8 @@ int unflow_corr_bwd_f2_f32(const void* g, const void* f1, void* df2, int B, int 
   return launch<float, Wrt::kF2>(g, f1, df2, B, H, W, C, P, s, stream);
 }
 
-int unflow_corr_bwd_f1_bf16(const void* g, const void* f2, void* df1, int B, int H, int W, int C,
-                            int P, int s, void* stream) {
+int unflow_corr_bwd_f1_bf16_simt(const void* g, const void* f2, void* df1, int B, int H, int W,
+                                 int C, int P, int s, void* stream) {
   return launch<__nv_bfloat16, Wrt::kF1>(g, f2, df1, B, H, W, C, P, s, stream);
 }
 

@@ -1,43 +1,49 @@
-// Gradient of the FlowNetC correlation to f2 in bf16 on Hopper's tensor cores
-// (sm_90a): unflow_corr_bwd_f2_bf16.
+// Both gradients of the FlowNetC correlation in bf16 on Hopper's tensor cores
+// (sm_90a): unflow_corr_bwd_f1_bf16 and unflow_corr_bwd_f2_bf16.
 //
-// Replaces the TPU kernel
-// unflow_tpu/ops/pallas/correlation_mxu.py::corr_bwd_f2_mxu ("B6") and takes
-// its formulation, a banded matrix product, but none of its blocks (no
-// pre-shifted cotangent, no rotating band buffer). With bf16 NHWC maps
-// (B, H, W, C), the bf16 cotangent g (B, H, W, D*D) and D = 2*(P/s) + 1,
+// They replace the TPU kernels
+// unflow_tpu/ops/pallas/correlation_mxu.py::corr_bwd_f1_mxu ("B5") and
+// ::corr_bwd_f2_mxu ("B6") and take their formulation, a banded matrix
+// product, but none of their blocks (no pre-shifted cotangent, no rotating band
+// buffer). With bf16 NHWC maps (B, H, W, C), the bf16 cotangent g
+// (B, H, W, D*D) and D = 2*(P/s) + 1,
 //
+//   df1[b, y, x, c] = (1/C) * sum_{i,j} g[b, y, x, i*D + j] * f2[b, y + s*i - P, x + s*j - P, c]
 //   df2[b, u, v, c] = (1/C) * sum_{i,j} g[b, y, x, i*D + j] * f1[b, y, x, c],
 //                     y = u + P - s*i,  x = v + P - s*j,
 //
-// with g and f1 zero outside the map, products and sums in f32 over all D*D
-// displacements, one scaling by 1/C and one rounding to bf16. A gather: no
-// atomics. It takes s in {1, 2}, D = 21 (FlowNetC's grid: P = 20 with s = 2,
-// P = 10 with s = 1) and C a multiple of 16 up to 256; the wrapper sends
-// everything else to the FP32-core kernel of correlation_bwd.cu.
+// with g and the maps zero outside the map, products and sums in f32 over all
+// D*D displacements, one scaling by 1/C and one rounding to bf16. df2 is a
+// gather: no atomics. They take s in {1, 2}, D = 21 (FlowNetC's grid: P = 20
+// with s = 2, P = 10 with s = 1) and C a multiple of 16 up to 256; the wrapper
+// sends everything else to the FP32-core kernels of correlation_bwd.cu.
 //
-// What bounds it. 2*B*H*W*D*D*C operations against g and one map read and one
-// map written: at the training shape (16, 40x144, 256) 20.8 GFLOP against
-// 176 MB, so device memory bounds it (0.05 ms at 3.35 TB/s). In practice the
-// traffic from L2 into shared memory sets the pace: every f1 row is needed by
-// D output rows and by (64 + 2P)/64 column tiles.
+// What bounds them. 2*B*H*W*D*D*C operations against g and one map read and
+// one map written: at the training shape (16, 40x144, 256) 20.8 GFLOP against
+// 176 MB, so device memory bounds them (0.05 ms at 3.35 TB/s). In practice the
+// number of instructions sets the pace (staging, the band, the products), then
+// the traffic from L2 into shared memory: every map row is needed by D output
+// rows and by (64 + 2P)/64 column tiles.
 //
-// Design. One block per (tile of 64 output columns, kRy = 2 output rows u and
-// u + s, batch element); 16 warps. The tile's columns are split by phase
-// (correlation_mma.cuh); a warp owns one 16-row matrix tile of one phase and
-// 64 of the C channels for each of the block's output rows, 32 f32 sums per
-// thread and row that persist over the displacement rows. Output rows u and
-// u + s meet the same source row y at displacement rows i and i + 1, so two
-// rows per block halve the traffic from L2 and share every B fragment. For
-// each source row y inside the map (the others are skipped by the whole
-// block) the block
-//   * stages the f1 row window by cp.async into a three-deep ring, the copy
-//     of row n + 2 running under the products of row n (B operand, read by
-//     ldmatrix.trans: window column = K, channel = N);
+// Design, one body for both (Wrt says which). One block per (tile of 64
+// output columns, kRy = 2 output rows of one row phase, batch element); 16
+// warps. The tile's columns are split by phase (correlation_mma.cuh); a warp
+// owns one 16-row matrix tile of one phase and 64 of the C channels for each of
+// the block's output rows, 32 f32 sums per thread and row that persist over the
+// displacement rows. The two output rows meet the same source row of the other
+// map at displacement rows i and i + 1, so two rows per block halve the traffic
+// from L2 and share every B fragment. For each source row inside the map (the
+// others are skipped by the whole block) the block
+//   * stages the other map's row window by cp.async into a three-deep ring,
+//     the copy of row n + 2 running under the products of row n (B operand,
+//     read by ldmatrix.trans: window column = K, channel = N);
 //   * builds, per matrix tile and output row, the 16 x 48 band matrix A^ in
-//     shared memory: A^[k, m] = g[y, window column m, i*D + (D-1) - (m-k)]
+//     shared memory. Tile row k and window column m meet at j = m - k:
+//       df1: A^[k, m] = g[y, tile row k's pixel, i*D + (m-k)]: the D values of
+//            one displacement row of the tile's own pixels, contiguous in g;
+//       df2: A^[k, m] = g[source row, window column m's pixel, i*D + (D-1) - (m-k)]
 //     for 0 <= m-k < D. A pixel of g is 441 bf16 = 882 bytes, so no 16-byte
-//     copy can address the contiguous values g[y, x, i*D ..]: they are read
+//     copy can address the contiguous values g[., x, i*D ..]: they are read
 //     with 2-byte loads, neighbouring threads on neighbouring values, into
 //     registers one source row ahead and scattered into the other of two A^
 //     buffers after this row's products. The 16*D band entries of a tile are
@@ -48,7 +54,9 @@
 //     pixel lies outside the map are written as zeros every time.
 // Then 3 k16 steps x 8 n8 tiles of mma.sync m16n8k16 per warp and output row.
 // Window columns past the band are staged as zeros, so the padded K steps add
-// 0 * 0.
+// 0 * 0. The two kernels differ in the order of the source rows (df1 walks
+// y + s*i - P upwards, df2 u + P - s*i downwards), in the band index and in
+// whose pixels the cotangent is read at.
 
 #include "correlation_mma.cuh"
 
@@ -68,10 +76,15 @@ constexpr int kGPer = (kCombos * kMmaRows * D + kThreads - 1) / kThreads;  // ba
 constexpr int kNt = kCg / 8;                     // n8 tiles per warp
 static_assert(kMmaRows - 1 + D <= kBandK, "the band fits the k16 steps");
 
-template <int S>
-__global__ void __launch_bounds__(kThreads, 1)
-corr_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ f1,
-                       __nv_bfloat16* __restrict__ df2, int H, int W, int C, int P) {
+enum class Wrt { kF1, kF2 };
+
+// `f` is the other map (f2 for df1, f1 for df2), `out` the gradient.
+template <int S, Wrt kWrt>
+__device__ __forceinline__ void corr_bwd_mma_body(const __nv_bfloat16* __restrict__ g,
+                                                  const __nv_bfloat16* __restrict__ f,
+                                                  __nv_bfloat16* __restrict__ out, int H, int W,
+                                                  int C, int P) {
+  constexpr bool kF1 = kWrt == Wrt::kF1;
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int cols = window_cols(S, kBandK);
   const int pitch = row_pitch_bytes(C);
@@ -94,21 +107,28 @@ corr_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16*
   const int lane_shift = lanes_per_pixel_shift(C);
   constexpr size_t dd = static_cast<size_t>(D) * D;
   const size_t plane = static_cast<size_t>(H) * W;
-  const __nv_bfloat16* f1b = f1 + b * plane * C;
+  const __nv_bfloat16* fb = f + b * plane * C;
   const __nv_bfloat16* gb = g + b * plane * dd;
 
-  // Source rows y(t) = y_top - S*t, t = 0 .. D + kRy - 2; output row r meets
-  // y(t) at displacement row i = t - (kRy - 1 - r). Those inside the map are
+  // Source rows y(t), t = 0 .. D + kRy - 2. df1: y(t) = u0 - P + S*t, and
+  // output row r meets y(t) at displacement row i = t - r. df2:
+  // y(t) = y_top - S*t, met at i = t - (kRy - 1 - r). Those inside the map are
   // the steps t_first .. t_first + n_steps - 1.
   const int y_top = u0 + S * (kRy - 1) + P;
-  const int t_first = y_top < H ? 0 : (y_top - H) / S + 1;
-  const int t_last = min(D + kRy - 2, y_top / S);
+  const int y_low = u0 - P;
+  const int t_first = kF1 ? (y_low >= 0 ? 0 : (-y_low + S - 1) / S)
+                          : (y_top < H ? 0 : (y_top - H) / S + 1);
+  const int t_last = min(D + kRy - 2, kF1 ? (H - 1 - y_low) / S : y_top / S);
   const int n_steps = t_last - t_first + 1;
+  auto source_row = [&](int n) {
+    return kF1 ? y_low + S * (t_first + n) : y_top - S * (t_first + n);
+  };
 
   // This thread's share of the band: entry e of the 16*D entries of a matrix
-  // tile, counted pixel by pixel (window column ml of the tile) and, within a
-  // pixel, along its contiguous displacement columns j, so that neighbouring
-  // threads read neighbouring values of g. Pixel ml has the entries
+  // tile, counted pixel by pixel and, within a pixel, along its contiguous
+  // displacement columns j, so that neighbouring threads read neighbouring
+  // values of g. df1: the pixel is tile row k, with all D entries (k, k + j).
+  // df2: the pixel is window column ml of the tile, with the entries
   // k = max(0, ml-D+1) .. min(15, ml), at j = D-1 - (ml-k).
   int g_off[kGPer];  // offset in a row of g, -1: pixel outside the map (a zero)
   int s_off[kGPer];  // entry of A^, -1: nothing to write
@@ -119,15 +139,22 @@ corr_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16*
       const int e = threadIdx.x + n * kThreads;
       const int cq = e / per_combo;
       int rem = e - cq * per_combo;
-      int ml = 0;
-      for (;; ++ml) {
-        const int count = min(kMmaRows - 1, ml) - max(0, ml - D + 1) + 1;
-        if (rem < count || ml >= kMmaRows + D - 2) break;
-        rem -= count;
+      int k, j, ml, x;
+      if constexpr (kF1) {
+        k = rem / D;
+        j = rem - k * D;
+        ml = k + j;
+        x = x0 + S * ((cq / S) * kMmaRows + k) + cq % S;
+      } else {
+        for (ml = 0;; ++ml) {
+          const int count = min(kMmaRows - 1, ml) - max(0, ml - D + 1) + 1;
+          if (rem < count || ml >= kMmaRows + D - 2) break;
+          rem -= count;
+        }
+        k = max(0, ml - D + 1) + rem;
+        j = D - 1 - (ml - k);
+        x = x0 - P + S * ((cq / S) * kMmaRows + ml) + cq % S;
       }
-      const int k = max(0, ml - D + 1) + rem;
-      const int j = D - 1 - (ml - k);
-      const int x = x0 - P + S * ((cq / S) * kMmaRows + ml) + cq % S;
       const bool wanted = cq < kCombos;
       s_off[n] = wanted ? (cq * kMmaRows + k) * kBandPitch + ml : -1;
       g_off[n] = (wanted && x >= 0 && x < W) ? x * D * D + j : -1;
@@ -136,26 +163,27 @@ corr_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16*
 
   auto prefetch = [&](int n) {
     if (n < n_steps) {
-      const int y = y_top - S * (t_first + n);
-      stage_row_async<S>(ring + (n % kStages) * stage_bytes, f1b + static_cast<size_t>(y) * W * C,
+      stage_row_async<S>(ring + (n % kStages) * stage_bytes,
+                         fb + static_cast<size_t>(source_row(n)) * W * C,
                          x0 - P, W, C, cols, needed, pitch, kThreads, lane_shift);
     }
     cp_async_commit();
   };
   // displacement row of output row r at step n; outside [0, D): nothing to add
-  auto disp_row = [&](int n, int r) { return t_first + n - (kRy - 1 - r); };
+  auto disp_row = [&](int n, int r) { return t_first + n - (kF1 ? r : kRy - 1 - r); };
   auto row_live = [&](int n, int r) {
     const int i = disp_row(n, r);
     return i >= 0 && i < D && u0 + S * r < H;
   };
   unsigned short g_val[kRy][kGPer];
   auto load_g = [&](int n) {
-    const unsigned short* row = reinterpret_cast<const unsigned short*>(
-        gb + static_cast<size_t>(y_top - S * (t_first + n)) * W * dd);
 #pragma unroll
     for (int r = 0; r < kRy; ++r) {
       if (!row_live(n, r)) continue;
-      const unsigned short* src = row + disp_row(n, r) * D;
+      // the cotangent's row: the output row's own (df1), the source row (df2)
+      const int y = kF1 ? u0 + S * r : source_row(n);
+      const unsigned short* src = reinterpret_cast<const unsigned short*>(
+          gb + static_cast<size_t>(y) * W * dd + disp_row(n, r) * D);
 #pragma unroll
       for (int m = 0; m < kGPer; ++m) g_val[r][m] = g_off[m] >= 0 ? __ldg(src + g_off[m]) : 0;
     }
@@ -247,7 +275,7 @@ corr_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16*
       for (int half = 0; half < 2; ++half) {
         const int v = x0 + S * (rt * kMmaRows + gq + half * 8) + p;
         if (v >= W) continue;
-        __nv_bfloat16* dst = df2 + ((b * plane + static_cast<size_t>(u) * W + v) * C);
+        __nv_bfloat16* dst = out + ((b * plane + static_cast<size_t>(u) * W + v) * C);
 #pragma unroll
         for (int nt = 0; nt < kNt; ++nt) {
           const int c = cg0 + nt * 8 + 2 * t4;
@@ -261,45 +289,67 @@ corr_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16*
 }
 
 template <int S>
-int launch_stride(const __nv_bfloat16* g, const __nv_bfloat16* f1, __nv_bfloat16* df2, int B,
+__global__ void __launch_bounds__(kThreads, 1)
+corr_bwd_f1_mma_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ f2,
+                       __nv_bfloat16* __restrict__ df1, int H, int W, int C, int P) {
+  corr_bwd_mma_body<S, Wrt::kF1>(g, f2, df1, H, W, C, P);
+}
+
+template <int S>
+__global__ void __launch_bounds__(kThreads, 1)
+corr_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ f1,
+                       __nv_bfloat16* __restrict__ df2, int H, int W, int C, int P) {
+  corr_bwd_mma_body<S, Wrt::kF2>(g, f1, df2, H, W, C, P);
+}
+
+template <int S, Wrt kWrt>
+int launch_stride(const __nv_bfloat16* g, const __nv_bfloat16* f, __nv_bfloat16* out, int B,
                   int H, int W, int C, int P, cudaStream_t stream) {
   const int smem = kStages * S * window_cols(S, kBandK) * row_pitch_bytes(C) +
                    2 * kRy * kBandElems * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(corr_bwd_f2_mma_kernel<S>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = kWrt == Wrt::kF1 ? corr_bwd_f1_mma_kernel<S> : corr_bwd_f2_mma_kernel<S>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int groups = row_blocks(H, S, kRy);
   const dim3 grid((W + kTx - 1) / kTx, groups, B);
-  corr_bwd_f2_mma_kernel<S><<<grid, kThreads, smem, stream>>>(g, f1, df2, H, W, C, P);
+  kernel<<<grid, kThreads, smem, stream>>>(g, f, out, H, W, C, P);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const void* g, const void* f1, void* df2, int B, int H, int W, int C, int P, int s,
+template <Wrt kWrt>
+int launch(const void* g, const void* f, void* out, int B, int H, int W, int C, int P, int s,
            void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kMaxC || C % 16 != 0 || P < 0 ||
       (s != 1 && s != 2) || P % s != 0 || 2 * (P / s) + 1 != D || B > 65535 || H > 65535 ||
       static_cast<long long>(W) * D * D > 0x7fffffffLL ||
-      reinterpret_cast<uintptr_t>(f1) % 16 != 0 || reinterpret_cast<uintptr_t>(df2) % 4 != 0)
+      reinterpret_cast<uintptr_t>(f) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(g);
-  const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(f1);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(df2);
+  const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(f);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return s == 2 ? launch_stride<2>(a, b, o, B, H, W, C, P, st)
-                : launch_stride<1>(a, b, o, B, H, W, C, P, st);
+  return s == 2 ? launch_stride<2, kWrt>(a, b, o, B, H, W, C, P, st)
+                : launch_stride<1, kWrt>(a, b, o, B, H, W, C, P, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success), cudaErrorInvalidValue
-// for a geometry the kernel does not take. `g` is the contiguous bf16
-// (B, H, W, D*D) cotangent, `f1` and `df2` contiguous bf16 NHWC maps, 16-byte
-// aligned; `stream` is a cudaStream_t.
+// Each returns the cudaError_t of its launch (0 on success),
+// cudaErrorInvalidValue for a geometry the kernels do not take. `g` is the
+// contiguous bf16 (B, H, W, D*D) cotangent, the other map (`f2` / `f1`) and the
+// gradient contiguous bf16 NHWC maps, 16-byte aligned; `stream` is a
+// cudaStream_t.
+int unflow_corr_bwd_f1_bf16(const void* g, const void* f2, void* df1, int B, int H, int W, int C,
+                            int P, int s, void* stream) {
+  return launch<Wrt::kF1>(g, f2, df1, B, H, W, C, P, s, stream);
+}
+
 int unflow_corr_bwd_f2_bf16(const void* g, const void* f1, void* df2, int B, int H, int W, int C,
                             int P, int s, void* stream) {
-  return launch(g, f1, df2, B, H, W, C, P, s, stream);
+  return launch<Wrt::kF2>(g, f1, df2, B, H, W, C, P, s, stream);
 }
 
 }  // extern "C"

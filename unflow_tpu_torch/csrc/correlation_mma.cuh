@@ -1,10 +1,10 @@
-// What the two tensor-core correlation kernels share (correlation_fwd_mma.cu,
-// correlation_bwd_f2_mma.cu): the tile geometry of the banded product and thin
+// What the three tensor-core correlation kernels share (correlation_fwd_mma.cu,
+// correlation_bwd_mma.cu): the tile geometry of the banded product and thin
 // wrappers of the PTX they are built from (cp.async, ldmatrix, mma.sync
 // m16n8k16 with bf16 operands and f32 sums).
 //
 // Geometry (mirrored by unflow_tpu_torch/ops/correlation_banded.py, which
-// computes both functions the same way in plain PyTorch). A block takes a
+// computes all three functions the same way in plain PyTorch). A block takes a
 // tile of kTx output columns and splits them by phase p = x mod S: tile row k
 // of phase p is output column x0 + S*k + p, window column m of phase p is map
 // column x0 - P + S*m + p, and the two meet at displacement j = m - k. A

@@ -1,7 +1,7 @@
 """Wrappers of the CUDA correlation kernels under ``csrc/`` and the
 ``torch.autograd.Function`` over them.
 
-Eight kernels. ``correlation_fwd.cu`` and ``correlation_bwd.cu`` hold one
+Nine kernels. ``correlation_fwd.cu`` and ``correlation_bwd.cu`` hold one
 template per function, run on the FP32 cores and instantiated for float32 and
 for bfloat16 (bf16 in, f32 sums, bf16 out), the two dtype contracts of the JAX
 package's TPU kernels:
@@ -11,11 +11,12 @@ package's TPU kernels:
   * gradient to f1: ``_corr_bwd_f1_chunk`` (f32), ``corr_bwd_f1_mxu`` (bf16);
   * gradient to f2: ``_corr_bwd_f2_chunk`` (f32), ``corr_bwd_f2_mxu`` (bf16).
 
-For the bf16 forward and the bf16 gradient to f2 there is a second kernel each
-on the tensor cores (``correlation_fwd_mma.cu``, ``correlation_bwd_f2_mma.cu``:
+Each of the three bf16 functions has a second kernel on the tensor cores
+(``correlation_fwd_mma.cu``, and both gradients in ``correlation_bwd_mma.cu``:
 the banded matrix product of :mod:`unflow_tpu_torch.ops.correlation_banded`).
-They carry the names ``corr_fwd_bf16`` and ``corr_bwd_f2_bf16``; the FP32-core
-instantiations are ``corr_fwd_bf16_simt`` and ``corr_bwd_f2_bf16_simt``.
+They carry the names ``corr_fwd_bf16``, ``corr_bwd_f1_bf16`` and
+``corr_bwd_f2_bf16``; the FP32-core instantiations are ``corr_fwd_bf16_simt``,
+``corr_bwd_f1_bf16_simt`` and ``corr_bwd_f2_bf16_simt``.
 :func:`tensor_core_ok` decides between the two from the dtype and the
 geometry alone, as ``_mxu_ok`` does in the JAX package. It is a dispatch and
 no fallback: a launch that fails raises, and nothing switches kernels on an
@@ -35,6 +36,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from unflow_tpu_torch.ops import correlation_tiled
 from unflow_tpu_torch.ops.correlation import (
     correlation_bwd_f1_torch,
     correlation_bwd_f2_torch,
@@ -42,8 +44,7 @@ from unflow_tpu_torch.ops.correlation import (
     displacement_count,
 )
 from unflow_tpu_torch.ops.correlation_banded import (
-    BWD_F2_ROWS_CHOICES,
-    FWD_ROWS_CHOICES,
+    ROWS_CHOICES,
     row_groups,
     tensor_core_geometry_ok,
     tile_count,
@@ -53,16 +54,15 @@ _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # op -> source under csrc/ of its FP32-core kernel
 SOURCES = {"fwd": "correlation_fwd", "bwd_f1": "correlation_bwd", "bwd_f2": "correlation_bwd"}
 # op -> source of its bf16 tensor-core kernel
-TENSOR_CORE_SOURCES = {"fwd": "correlation_fwd_mma", "bwd_f2": "correlation_bwd_f2_mma"}
-# kernel name -> (source, C symbol)
-KERNELS = {
-    f"corr_{op}_{suffix}": (source, f"unflow_corr_{op}_{suffix}")
-    for op, source in SOURCES.items()
-    for suffix in _DTYPE_SUFFIX.values()
+TENSOR_CORE_SOURCES = {
+    "fwd": "correlation_fwd_mma", "bwd_f1": "correlation_bwd_mma", "bwd_f2": "correlation_bwd_mma",
 }
-for _op, _source in TENSOR_CORE_SOURCES.items():
-    KERNELS[f"corr_{_op}_bf16_simt"] = (SOURCES[_op], f"unflow_corr_{_op}_bf16_simt")
-    KERNELS[f"corr_{_op}_bf16"] = (_source, f"unflow_corr_{_op}_bf16")
+# kernel name -> (source, C symbol)
+KERNELS = {}
+for _op, _source in SOURCES.items():
+    KERNELS[f"corr_{_op}_f32"] = (_source, f"unflow_corr_{_op}_f32")
+    KERNELS[f"corr_{_op}_bf16_simt"] = (_source, f"unflow_corr_{_op}_bf16_simt")
+    KERNELS[f"corr_{_op}_bf16"] = (TENSOR_CORE_SOURCES[_op], f"unflow_corr_{_op}_bf16")
 _TENSOR_CORE_KERNELS = frozenset(f"corr_{op}_bf16" for op in TENSOR_CORE_SOURCES)
 _LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -142,12 +142,17 @@ def _launch(
     if name in _TENSOR_CORE_KERNELS:
         # the banded kernels' grid is (column tiles, row groups, batch); the
         # fewest rows per block give the most row groups
-        choices = FWD_ROWS_CHOICES if op == "fwd" else BWD_F2_ROWS_CHOICES
-        groups = row_groups(h, stride, min(choices))
+        groups = row_groups(h, stride, min(ROWS_CHOICES[op]))
         if max(groups, batch) > 65535 or tile_count(w) * groups * batch == 0:
             raise ValueError(f"{name}: no launch grid for maps {tuple(b.shape)}")
         if a.data_ptr() % 16 or b.data_ptr() % 16:
             raise ValueError(f"{name} needs 16-byte aligned tensors")
+    elif op == "fwd":
+        # the register-tiled forward: (column tiles, row groups, batch x
+        # displacement blocks), and a pixel's offset in a map kept as an int
+        grid = correlation_tiled.launch_grid(tuple(b.shape), max_displacement, stride)
+        if max(grid[1:]) > correlation_tiled.MAX_GRID_YZ or h * w * c >= 2**31:
+            raise ValueError(f"{name}: no launch grid for maps {tuple(b.shape)}")
     out = torch.empty((batch, h, w, out_channels), dtype=b.dtype, device=b.device)
     # autograd runs backward on a thread of its own: enter the device there too
     with torch.cuda.device(b.device):
@@ -192,15 +197,17 @@ def _check_cotangent(g: torch.Tensor, f: torch.Tensor, max_displacement: int, st
 
 
 def correlation_bwd_f1(
-    g: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride: int = 2
+    g: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride: int = 2,
+    kernel: str | None = None,
 ) -> torch.Tensor:
     """Gradient to ``f1`` for the cotangent ``g`` ``(B, H, W, D*D)``, in the
     dtype of ``f2``. CUDA tensors go through the kernel or raise; CPU tensors
-    take :func:`correlation_bwd_f1_torch`."""
+    take :func:`correlation_bwd_f1_torch`. ``kernel`` as in
+    :func:`correlation_fwd`."""
     _check_cotangent(g, f2, max_displacement, stride)
     if g.device.type == "cpu" and f2.device.type == "cpu":
         return correlation_bwd_f1_torch(g, f2, max_displacement, stride)
-    return _launch("bwd_f1", g, f2, f2.shape[3], max_displacement, stride)
+    return _launch("bwd_f1", g, f2, f2.shape[3], max_displacement, stride, kernel)
 
 
 def correlation_bwd_f2(
