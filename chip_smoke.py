@@ -21,6 +21,8 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 numbers are from this case). Times are medians of 20 launches,
                 each timed with CUDA events after warm-up. A tensor-core kernel
                 that is slower than its twin at the training geometry fails the run.
+                Each f32 gradient's time at the training geometry is also printed
+                as a ratio to the f32 forward's there (same FMAs, same bound).
                 Then the autograd Function over the three kernels against
                 autograd through the plain version, with a non-contiguous
                 cotangent.
@@ -46,7 +48,8 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 1e-4 in f32 with TF32 off: summation order and the atomics of the
                 warp's gradient differ). Last, ``Trainer.run`` on batches that are
                 ready on the host, for the step's own time, its peak memory and a
-                profile of one step.
+                profile of one step; and one f32 step at batch 8 (TF32 off),
+                profiled after a warm-up, for the f32 gradients' share of it.
 
 Prints the GPU's name and power limit first, then a line per check, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -236,6 +239,8 @@ def check_kernels() -> dict[str, dict]:
                         got = kernel(a, b, p, s, **forced)
                         torch.cuda.synchronize()
                         ms = times[which] = median_ms(lambda: kernel(a, b, p, s, **forced))
+                    if which == "corr_fwd_f32":
+                        fwd_f32_ms = ms
                     if launch_counts()[which] <= before:
                         raise AssertionError(f"{which} was not the kernel launched at {case}")
                     err = (got.float() - ref.float()).abs().max().item()
@@ -245,6 +250,10 @@ def check_kernels() -> dict[str, dict]:
                           f"ms/bound {ms / bound:.2f}", flush=True)
                     if not err <= TOLERANCE[dtype] * scale:
                         raise AssertionError(f"{which} disagrees with its plain version at {case}")
+                    if case == "train" and which in ("corr_bwd_f1_f32", "corr_bwd_f2_f32"):
+                        # the same FMAs against the same bound as the f32 forward
+                        print(f"ratio {which} / corr_fwd_f32 train: "
+                              f"{ms / fwd_f32_ms:.2f} ({ms:.4f} / {fwd_f32_ms:.4f} ms)", flush=True)
                     if case == (SIMT_CASE if which.endswith("_simt") else REPORT_CASE[op]):
                         report[which] = {
                             "name": which, "route": "cuda",
@@ -548,6 +557,29 @@ def run_train_timed(tmp: Path, warmup: int = 4, steps: int = 16) -> None:
           f"(part of each step; it may be missing from the profile above)", flush=True)
 
 
+def run_train_profiled_f32(tmp: Path, warmup: int = 2) -> None:
+    """One f32 train step at 320x1152, batch 8 (TF32 off), profiled after a
+    warm-up: the share of the f32 gradients in the step they serve."""
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+    from unflow_tpu_torch.train import Trainer
+
+    cfg = train_config(tmp, compute_dtype="float32", num_iters=warmup, display_interval=warmup)
+    trainer = Trainer(cfg, tmp / "profiled_f32", itertools.cycle(host_batches(8, 1)), device="cuda")
+    trainer.run(max_iters=warmup)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    trainer.train_step(next(trainer.batches))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    mine = {k: v for k, v in launch_counts().items() if v}
+    print(f"train step f32 320x1152 batch 8: {wall_s * 1e3:.3f} ms (host clock, one step after "
+          f"{warmup} warm-up steps) launches {mine}", flush=True)
+    if mine != {"corr_fwd_f32": 1, "corr_bwd_f1_f32": 1, "corr_bwd_f2_f32": 1}:
+        raise AssertionError(f"the f32 train step did not launch the three f32 kernels: {mine}")
+    profile_call(lambda: trainer.train_step(next(trainer.batches)), "f32 train step", wall_s, top=14)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -597,6 +629,7 @@ def main() -> int:
         run_train_twin(tmp, "float32", 2, 1e-4)
         run_train_twin(tmp, "bfloat16", 8, 2e-2, corr_stride=4)
         run_train_timed(tmp)
+        run_train_profiled_f32(tmp)
 
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)

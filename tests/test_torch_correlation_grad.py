@@ -192,3 +192,23 @@ def test_function_goes_through_the_dispatch(dtype, monkeypatch):
     CorrelationFunction.apply(f1, f2, 20, 2).sum().backward()
     suffix = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
     assert seen == [(f"corr_{op}_{suffix}", None) for op in ("fwd", "bwd_f1", "bwd_f2")]
+
+
+@pytest.mark.parametrize("dtype,suffix", [(torch.float32, "f32"), (torch.bfloat16, "bf16_simt")])
+@pytest.mark.parametrize("op", ["bwd_f1", "bwd_f2"])
+@pytest.mark.parametrize(
+    "shape,max_disp,stride",
+    [((32768, 1, 1, 72), 2, 1),  # batch x 64-channel slices past the grid's 65535
+     ((1, 4096, 1190, 1), 20, 2),  # the cotangent's offsets past an int
+     ((1, 2**16, 2**15, 1), 2, 1)],  # the map's offsets past an int
+)
+def test_gradient_wrappers_refuse_what_the_fp32_core_kernels_do_not_take(
+    shape, max_disp, stride, op, dtype, suffix
+):
+    # meta tensors stand in for CUDA tensors: the check comes before any launch
+    d = displacement_count(max_disp, stride)
+    f = torch.empty(shape, dtype=dtype, device="meta")
+    g = torch.empty((*shape[:3], d * d), dtype=dtype, device="meta")
+    fn = correlation_bwd_f1 if op == "bwd_f1" else correlation_bwd_f2
+    with pytest.raises(ValueError, match=f"corr_{op}_{suffix}: no launch grid"):
+        fn(g, f, max_disp, stride)

@@ -32,11 +32,14 @@ from unflow_tpu_torch.ops.cuda.correlation import (
 # stride. In bf16 the tensor-core kernels take D = 21 with C a multiple of 16:
 # C = 16 below a tile, C = 64 across three column tiles with P = 20, C = 128
 # with stride 1 and a width that divides no tile. The others (C = 8, C = 24,
-# D = 5, 11 or 45) take the FP32-core kernels (*_simt)
+# D = 5, 11 or 45) take the FP32-core kernels (*_simt); so do C = 5 (staged
+# by plain loads) and H = 3 with W = 9 (below one block of the FP32-core
+# kernels)
 GEOMETRIES = [
     ((2, 8, 40, 16), 4, 2), ((1, 9, 75, 24), 5, 1), ((1, 6, 20, 8), 44, 2),
     ((1, 8, 70, 32), 20, 4), ((2, 9, 150, 256), 20, 4),
     ((2, 8, 40, 16), 20, 2), ((1, 7, 150, 64), 20, 2), ((2, 5, 75, 128), 10, 1),
+    ((2, 6, 20, 5), 4, 2), ((1, 3, 9, 8), 4, 1),
 ]
 DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 0.02)]
 
@@ -139,6 +142,39 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         correlation_fwd(f.transpose(1, 2), f.transpose(1, 2), 2, 1)
     with pytest.raises(ValueError, match="one CUDA device"):
         correlation_bwd_f1(torch.zeros(1, 4, 8, 25), f, 2, 1)
+    # the FP32-core gradients: batch x 64-channel slices past the grid's 65535
+    many = torch.zeros(32768, 1, 1, 72, device=cuda_device)
+    g = torch.zeros(32768, 1, 1, 25, device=cuda_device)
+    for op, fn in (("bwd_f1", correlation_bwd_f1), ("bwd_f2", correlation_bwd_f2)):
+        for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16_simt")):
+            before = launch_counts()
+            with pytest.raises(ValueError, match=f"corr_{op}_{suffix}: no launch grid"):
+                fn(g.to(dtype), many.to(dtype), 2, 1)
+            assert launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,suffix", [(torch.float32, 1e-5, "f32"), (torch.bfloat16, 0.02, "bf16_simt")])
+@pytest.mark.parametrize("op,kernel,plain", [("bwd_f1", correlation_bwd_f1, correlation_bwd_f1_torch),
+                                             ("bwd_f2", correlation_bwd_f2, correlation_bwd_f2_torch)])
+def test_cuda_gradients_take_unaligned_maps(cuda_device, op, kernel, plain, dtype, tol, suffix):
+    """A map one element past a 16-byte boundary (contiguous, so the wrappers
+    take it): the FP32-core gradients stage it and write the output by plain
+    loads and stores."""
+    shape, max_disp, stride = (2, 9, 40, 32), 20, 2
+    d = displacement_count(max_disp, stride)
+    rng = np.random.RandomState(12)
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(rng.randn(n + 1).astype(np.float32)).to(cuda_device, dtype)
+    f = buf[1:].view(shape)
+    assert f.is_contiguous() and f.data_ptr() % 16
+    g = torch.from_numpy(rng.randn(*shape[:3], d * d).astype(np.float32)).to(cuda_device, dtype)
+    name = f"corr_{op}_{suffix}"
+    before = launch_counts()[name]
+    got = kernel(g, f, max_disp, stride, kernel=name)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == before + 1
+    _assert_close(got, plain(g, f, max_disp, stride), tol)
 
 
 @pytest.mark.cuda

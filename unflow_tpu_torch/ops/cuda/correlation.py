@@ -123,6 +123,32 @@ def _check_geometry(max_displacement: int, stride: int) -> None:
         )
 
 
+def _check_grid(name: str, op: str, a: torch.Tensor, b: torch.Tensor, max_displacement: int,
+                stride: int) -> None:
+    """Raise before any launch where the kernel ``name`` has no grid for these
+    shapes or its int offsets would overflow."""
+    batch, h, w, c = b.shape
+    if name in _TENSOR_CORE_KERNELS:
+        # the banded kernels' grid is (column tiles, row groups, batch); the
+        # fewest rows per block give the most row groups
+        groups = row_groups(h, stride, min(ROWS_CHOICES[op]))
+        if max(groups, batch) > 65535 or tile_count(w) * groups * batch == 0:
+            raise ValueError(f"{name}: no launch grid for maps {tuple(b.shape)}")
+        return
+    # the register-tiled FP32-core kernels: (column tiles, row groups, batch x
+    # displacement blocks) for the forward, (column tiles, row groups, batch x
+    # channel slices) for the gradients; a pixel's offset in one batch
+    # element's map, and for the gradients in its cotangent, kept as an int
+    if op == "fwd":
+        grid = correlation_tiled.launch_grid(tuple(b.shape), max_displacement, stride)
+        volume = 0
+    else:
+        grid = correlation_tiled.gradient_launch_grid(tuple(b.shape), max_displacement, stride)
+        volume = h * w * a.shape[3]
+    if max(grid[1:]) > correlation_tiled.MAX_GRID_YZ or max(h * w * c, volume) >= 2**31:
+        raise ValueError(f"{name}: no launch grid for maps {tuple(b.shape)}")
+
+
 def _launch(
     op: str, a: torch.Tensor, b: torch.Tensor, out_channels: int, max_displacement: int, stride: int,
     kernel: str | None = None,
@@ -135,24 +161,13 @@ def _launch(
         raise TypeError(f"CUDA correlation takes float32 or bfloat16: {a.dtype}, {b.dtype}")
     batch, h, w, c = b.shape
     name = _named_kernel(op, b.dtype, c, max_displacement, stride, kernel)
+    _check_grid(name, op, a, b, max_displacement, stride)
     if not (a.is_cuda and b.device == a.device):
         raise ValueError(f"{op}: inputs must lie on one CUDA device: {a.device} vs {b.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"{op}: the CUDA correlation needs contiguous NHWC inputs")
-    if name in _TENSOR_CORE_KERNELS:
-        # the banded kernels' grid is (column tiles, row groups, batch); the
-        # fewest rows per block give the most row groups
-        groups = row_groups(h, stride, min(ROWS_CHOICES[op]))
-        if max(groups, batch) > 65535 or tile_count(w) * groups * batch == 0:
-            raise ValueError(f"{name}: no launch grid for maps {tuple(b.shape)}")
-        if a.data_ptr() % 16 or b.data_ptr() % 16:
-            raise ValueError(f"{name} needs 16-byte aligned tensors")
-    elif op == "fwd":
-        # the register-tiled forward: (column tiles, row groups, batch x
-        # displacement blocks), and a pixel's offset in a map kept as an int
-        grid = correlation_tiled.launch_grid(tuple(b.shape), max_displacement, stride)
-        if max(grid[1:]) > correlation_tiled.MAX_GRID_YZ or h * w * c >= 2**31:
-            raise ValueError(f"{name}: no launch grid for maps {tuple(b.shape)}")
+    if name in _TENSOR_CORE_KERNELS and (a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError(f"{name} needs 16-byte aligned tensors")
     out = torch.empty((batch, h, w, out_channels), dtype=b.dtype, device=b.device)
     # autograd runs backward on a thread of its own: enter the device there too
     with torch.cuda.device(b.device):
