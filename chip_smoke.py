@@ -42,14 +42,46 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 a displacement grid the tensor-core kernels do not take, which
                 must launch the three ``*_simt`` twins instead. Then one train
                 step through the kernels against the same step through the plain
-                correlation (same parameters, batch and seed), in bf16, in f32
-                and in bf16 with ``corr_stride=4``: loss, grad_norm and the
-                relative L2 of the whole gradient must agree (2e-2 in bf16,
-                1e-4 in f32 with TF32 off: summation order and the atomics of the
-                warp's gradient differ). Last, ``Trainer.run`` on batches that are
+                correlation (same parameters, batch and seed, cuDNN held to its
+                deterministic algorithms), in bf16, in f32 and in bf16 with
+                ``corr_stride=4``: loss, grad_norm and the relative L2 of the
+                whole gradient must agree (2e-2 in bf16, 1e-4 in f32 with TF32
+                off: the correlation's summation order differs), and the step
+                must launch its three kernels once; the f32 step is also run
+                twice through the plain correlation, as a control. Then ``Trainer.run`` on batches that are
                 ready on the host, for the step's own time, its peak memory and a
                 profile of one step; and one f32 step at batch 8 (TF32 off),
                 profiled after a warm-up, for the f32 gradients' share of it.
+  5. recipe  -- the stacked recipe through ``cli.train``, 2 steps each at 320x1152,
+                batch 8, bf16, ``dataset=synthetic``, a checkpoint at step 2:
+                configs/kitti_unsup_c.ini (FlowNetC, ``--ex kitti_c``), then
+                configs/kitti_cs.ini (cS, finetune = kitti_c), then
+                configs/kitti_css.ini (csS, finetune = kitti_c, kitti_cs). C must
+                launch each of the three bf16 tensor-core kernels once per step;
+                cS and csS only the forward (the frozen C needs no gradient). The
+                csS checkpoint's stage0_C must equal kitti_c's bit for bit, its
+                stage1_S kitti_cs's.
+  6. resume  -- csS for 4 steps in one ``Trainer``, and again as two segments: a
+                ``Trainer`` stops at step 2 and saves, a new one on the same
+                experiment, fed the stream from ``start_batch=2``, runs to step 4.
+                The losses of steps 3 and 4 and every parameter at the end must
+                be identical (csS has no float atomics in its step, and cuDNN is
+                held to its deterministic algorithms for this phase).
+  7. serving the cascade -- ``cli.infer --ex kitti_css`` on a 375x1242 pair (the
+                snapshot supplies the net) must write a finite flow and launch
+                ``corr_fwd_bf16`` once; ``Evaluator(exp_dir=...)`` at batch 4 is
+                held against the same weights through the plain correlation
+                (relative L2 < 2e-2) and timed.
+  8. the ``CSS`` twins -- every stage trainable, ``train_all`` (each stage's loss,
+                gradients through the warps into C): one step through the
+                kernels against the plain-correlation step, bf16 at batch 8
+                (2e-2) and f32 at batch 2 (1e-4, TF32 off) from three init seeds.
+                Each f32 gap is printed per stage and for its largest leaves,
+                beside the gap between two runs of the plain step itself; then
+                the plain step twice with cuDNN's default algorithms (printed).
+  9. timed cascades -- ``Trainer.run`` for csS and for CSS (``train_all``) at
+                320x1152, batch 8, bf16, on ready host batches: step time, peak
+                memory and a profile of one step, as for C.
 
 Prints the GPU's name and power limit first, then a line per check, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -57,10 +89,13 @@ Prints the GPU's name and power limit first, then a line per check, a
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
 import statistics
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -72,6 +107,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "kitti_unsup_c.ini"
+CS_CONFIG = ROOT / "configs" / "kitti_cs.ini"
+CSS_CONFIG = ROOT / "configs" / "kitti_css.ini"
 FRAME_HW = (375, 1242)  # KITTI eval size; the evaluator pads it to 384x1280
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # FP32 cores; dense bf16
@@ -91,6 +128,8 @@ REPLACES = {
 REPORT_CASE = {"fwd": "eval", "bwd_f1": "train", "bwd_f2": "train"}
 SIMT_CASE = "stride4"
 TRAIN_STEPS = 12
+RECIPE_STEPS = 2
+TENSOR_CORE_KERNELS = ("corr_fwd_bf16", "corr_bwd_f1_bf16", "corr_bwd_f2_bf16")
 # profile rows by the words in a kernel's name; the first group that matches
 PROFILE_GROUPS = {
     "correlation kernels (this repo)": (
@@ -320,6 +359,19 @@ def simt_launches() -> int:
     return sum(v for k, v in launch_counts().items() if k.endswith("_simt"))
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to its deterministic algorithms: its default ones may sum a
+    convolution's weight gradient in another order from one call to the
+    next."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
 def relative_l2(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
@@ -379,21 +431,30 @@ def profile_call(fn, what: str, wall_s: float, top: int = 8) -> None:
         print(f"  profile: {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
-def run_eval(dtype: str, kernel: str, tolerance: float) -> tuple[int, float]:
+def run_eval(dtype: str, kernel: str, tolerance: float,
+             exp_dir: Path | None = None) -> tuple[int, float]:
+    """``Evaluator.predict_batch`` at batch 4: FlowNetC of configs/kitti_unsup_c.ini
+    with random weights, or the network and weights of the experiment
+    ``exp_dir`` (its snapshot and latest checkpoint)."""
     from unflow_tpu_torch.config import load_config
-    from unflow_tpu_torch.data import dataset_normalization
+    from unflow_tpu_torch.data import DEFAULT_NORMALIZATION, dataset_normalization
     from unflow_tpu_torch.eval.evaluate import Evaluator
     from unflow_tpu_torch.models import build_model, init_params
     from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+    from unflow_tpu_torch.train import restore_params
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(CONFIG if exp_dir is None else exp_dir / "config.ini")
     cfg.train.compute_dtype = dtype
-    norm = dataset_normalization(cfg.train.dataset)
-    model = build_model(cfg, "cpu")
-    init_params(model, torch.Generator().manual_seed(1))
-    params = model.state_dict()
+    norm = dataset_normalization(cfg.train.dataset) or DEFAULT_NORMALIZATION
+    if exp_dir is None:
+        model = build_model(cfg, "cpu")
+        init_params(model, torch.Generator().manual_seed(1))
+        params = model.state_dict()
+        ev = Evaluator(cfg, params=params, normalization=norm, device="cuda")
+    else:
+        params = restore_params(exp_dir)
+        ev = Evaluator(cfg, exp_dir, normalization=norm, device="cuda")
     ims1, ims2 = synthetic_frames(4, seed=2)
-    ev = Evaluator(cfg, params=params, normalization=norm, device="cuda")
     ev.predict_batch(ims1, ims2)  # warm-up: cuDNN picks its algorithms
     reset_launch_counts()
     flow = ev.predict_batch(ims1, ims2)
@@ -404,7 +465,8 @@ def run_eval(dtype: str, kernel: str, tolerance: float) -> tuple[int, float]:
         ev.predict_batch(ims1, ims2)
     pairs_per_s = runs * len(ims1) / (time.perf_counter() - t)
 
-    print(f"main path predict_batch {dtype} batch 4: launches {launches} of {kernel} "
+    print(f"main path predict_batch {cfg.train.flownet} {dtype} batch 4: launches {launches} of "
+          f"{kernel} "
           f"pairs/s {pairs_per_s:.3f} (host clock, {runs} batches, incl. host padding "
           f"and copies)", flush=True)
     profile_call(lambda: ev.predict_batch(ims1, ims2), "batch", len(ims1) / pairs_per_s)
@@ -413,7 +475,8 @@ def run_eval(dtype: str, kernel: str, tolerance: float) -> tuple[int, float]:
     ref = Evaluator(ref_cfg, params=params, normalization=norm, device="cuda")
     want = ref.predict_batch(ims1, ims2)
     err = relative_l2(flow, want)
-    print(f"main path predict_batch {dtype}: relative_l2_vs_plain {err:.3e} (tol {tolerance})",
+    print(f"main path predict_batch {cfg.train.flownet} {dtype}: relative_l2_vs_plain {err:.3e} "
+          f"(tol {tolerance})",
           flush=True)
     if launches < 1 or simt_launches():
         raise AssertionError(f"predict_batch {dtype} did not launch {kernel}")
@@ -424,17 +487,18 @@ def run_eval(dtype: str, kernel: str, tolerance: float) -> tuple[int, float]:
     return launches, pairs_per_s
 
 
-def train_config(tmp: Path, **overrides):
-    """configs/kitti_unsup_c.ini with ``dataset=synthetic``, its log directory
-    under ``tmp`` and ``overrides`` applied; also written to ``tmp`` for the CLI."""
+def train_config(tmp: Path, config: Path = CONFIG, **overrides):
+    """``config`` with ``dataset=synthetic``, its log directory under ``tmp``
+    and ``overrides`` applied; also written to ``tmp/<config's name>`` for the
+    CLI."""
     from unflow_tpu_torch.config import load_config, save_config
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(config)
     cfg.dirs.log = str(tmp / "log")
     cfg.train.dataset = "synthetic"
     for key, value in overrides.items():
         setattr(cfg.train, key, value)
-    save_config(cfg, tmp / "train.ini")
+    save_config(cfg, tmp / config.name)
     return cfg
 
 
@@ -457,7 +521,7 @@ def run_train_cli(tmp: Path, dtype: str, steps: int, batch: int,
     name = f"smoke_{dtype}_s{stride}"
     reset_launch_counts()
     t = time.perf_counter()
-    rc = train_main(["--config", str(tmp / "train.ini"), "--ex", name,
+    rc = train_main(["--config", str(tmp / CONFIG.name), "--ex", name,
                      "--set", f"compute_dtype={dtype}", "--set", f"batch_size={batch}",
                      "--set", f"corr_stride={stride}",
                      "--set", f"num_iters={steps}", "--set", f"display_interval={min(4, steps)}"])
@@ -494,58 +558,141 @@ def host_batches(batch: int, count: int):
 
 
 def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
-                   corr_stride: int = 2) -> None:
+                   corr_stride: int = 2, config: Path = CONFIG, seed: int = 5,
+                   control: bool = False, **overrides) -> None:
     """One train step through the kernels against the same step through the
-    plain correlation: same parameters, batch and step seed."""
-    from unflow_tpu_torch.models import build_model, init_params
+    plain correlation: same parameters (from ``seed``), batch and step seed,
+    cuDNN held to its deterministic algorithms (so that the two steps differ
+    by the correlation alone). The step through the kernels must launch the
+    three that the dispatch picks, once each. A stack's gap is also printed
+    per stage and for its largest leaves; with ``control`` the plain step
+    runs twice, and the gap between those two (what is left of the card's
+    run-to-run spread: the float atomics of the gathers' and the resizes'
+    gradients) is printed beside it."""
+    from unflow_tpu_torch.models import DTYPES, build_model, init_params
+    from unflow_tpu_torch.ops.cuda.correlation import (
+        kernel_name,
+        launch_counts,
+        reset_launch_counts,
+    )
     from unflow_tpu_torch.train import Trainer
 
     batches = host_batches(batch, 1)
-    results = {}
+    results, launched = {}, {}
     params = None
-    for impl in ("cuda", "torch"):
-        cfg = train_config(tmp, compute_dtype=dtype, batch_size=batch, corr_impl=impl,
-                           corr_stride=corr_stride, num_iters=1, display_interval=1)
+    for impl in ("cuda", "torch", "torch_again") if control else ("cuda", "torch"):
+        cfg = train_config(tmp, config, compute_dtype=dtype, batch_size=batch,
+                           corr_impl=impl.removesuffix("_again"), corr_stride=corr_stride,
+                           **overrides)
         if params is None:
             model = build_model(cfg, "cpu")
-            init_params(model, torch.Generator().manual_seed(5))
+            init_params(model, torch.Generator().manual_seed(seed))
             params = model.state_dict()
-        trainer = Trainer(cfg, tmp / f"twin_{dtype}_s{corr_stride}_{impl}", itertools.cycle(batches),
-                          device="cuda", params=params)
-        logs = trainer.run()
-        grads = torch.cat([p.grad.flatten() for p in trainer.model.parameters()])
+        trainer = Trainer(cfg, tmp / f"twin_{cfg.train.flownet}_{dtype}_s{corr_stride}_{impl}",
+                          [], device="cuda", params=params)
+        reset_launch_counts()
+        with deterministic_cudnn():
+            logs = {k: float(v) for k, v in trainer.train_step(batches[0]).items()}
+            torch.cuda.synchronize()
+        launched[impl] = {k: v for k, v in launch_counts().items() if v}
+        grads = {n: p.grad.flatten() for n, p in trainer.model.named_parameters()
+                 if p.grad is not None}
         results[impl] = (logs["loss"], logs["grad_norm"], grads)
-    (loss_a, norm_a, g_a), (loss_b, norm_b, g_b) = results["cuda"], results["torch"]
-    rel = {
-        "loss": abs(loss_a - loss_b) / abs(loss_b),
-        "grad_norm": abs(norm_a - norm_b) / abs(norm_b),
-        "gradient_l2": (torch.linalg.vector_norm(g_a - g_b) / torch.linalg.vector_norm(g_b)).item(),
-    }
-    print(f"train step vs plain twin {dtype} batch {batch} corr_stride {corr_stride}: loss {loss_a:.6g} vs {loss_b:.6g}, "
-          f"grad_norm {norm_a:.6g} vs {norm_b:.6g}, relative differences "
-          + " ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (tol {tolerance})", flush=True)
+    # every twin's correlation sees FlowNetC's conv3 maps: 256 channels
+    expected = {kernel_name(op, DTYPES[dtype], 256, cfg.train.max_displacement, corr_stride): 1
+                for op in ("fwd", "bwd_f1", "bwd_f2")}
+
+    def gaps(a, b):
+        (loss_a, norm_a, g_a), (loss_b, norm_b, g_b) = results[a], results[b]
+        flat_a, flat_b = torch.cat(list(g_a.values())), torch.cat(list(g_b.values()))
+        rel = {
+            "loss": abs(loss_a - loss_b) / abs(loss_b),
+            "grad_norm": abs(norm_a - norm_b) / abs(norm_b),
+            "gradient_l2": (torch.linalg.vector_norm(flat_a - flat_b)
+                            / torch.linalg.vector_norm(flat_b)).item(),
+        }
+        # each stage's share of the whole gradient's gap, and the largest leaves'
+        total = torch.linalg.vector_norm(flat_b).item()
+        leaf = {n: torch.linalg.vector_norm(g_a[n] - g_b[n]).item() / total for n in g_b}
+        stages = sorted({n.split(".")[0] for n in g_b})
+        per_stage = {st: float(np.sqrt(sum(v * v for n, v in leaf.items() if n.startswith(st + "."))))
+                     for st in stages}
+        top = sorted(leaf.items(), key=lambda kv: -kv[1])[:3]
+        return rel, per_stage, top
+
+    what = (f"{cfg.train.flownet}{' train_all' if cfg.train.train_all else ''} {dtype}"
+            f"{f' init seed {seed}' if seed != 5 else ''}")
+    rel, per_stage, top = gaps("cuda", "torch")
+    (loss_a, norm_a, _), (loss_b, norm_b, _) = results["cuda"], results["torch"]
+    print(f"train step vs plain twin {what} batch {batch} corr_stride {corr_stride}: "
+          f"loss {loss_a:.6g} vs {loss_b:.6g}, grad_norm {norm_a:.6g} vs {norm_b:.6g}, "
+          "relative differences " + " ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + f" (tol {tolerance}); launches {launched['cuda']}", flush=True)
+    pairs = [("kernels vs plain", per_stage, top)]
+    if control:
+        c_rel, c_stage, c_top = gaps("torch_again", "torch")
+        print(f"  control, plain vs plain (same step again): relative differences "
+              + " ".join(f"{k} {v:.3e}" for k, v in c_rel.items()), flush=True)
+        pairs.append(("plain vs plain", c_stage, c_top))
+    if len(per_stage) > 1:
+        for label, stage_gap, leaves in pairs:
+            print(f"  {label}: gap per stage (share of the whole gradient's norm) "
+                  + " ".join(f"{k} {v:.3e}" for k, v in stage_gap.items())
+                  + "; largest leaves " + " ".join(f"{n} {v:.3e}" for n, v in leaves), flush=True)
     if not (np.isfinite(loss_a) and all(v < tolerance for v in rel.values())):
-        raise AssertionError(f"train step {dtype} disagrees with its plain-correlation twin")
+        raise AssertionError(f"train step {what} disagrees with its plain-correlation twin")
+    want = {"cuda": expected, "torch": {}, **({"torch_again": {}} if control else {})}
+    if launched != want:
+        raise AssertionError(f"train step {what} did not launch {expected}: {launched}")
 
 
-def run_train_timed(tmp: Path, warmup: int = 4, steps: int = 16) -> None:
-    """``Trainer.run`` at 320x1152, batch 8, bf16 on batches that are ready on
-    the host: the step's time from the Trainer's own window, the peak memory
-    and a profile of one step."""
+def run_cudnn_spread(tmp: Path, seed: int = 7) -> None:
+    """The f32 ``CSS`` + ``train_all`` step at batch 2 through the plain
+    correlation, twice, with cuDNN free to pick its algorithms: the card's
+    run-to-run spread that the twins are held clear of. A measurement only."""
+    from unflow_tpu_torch.models import build_model, init_params
     from unflow_tpu_torch.train import Trainer
 
-    cfg = train_config(tmp, num_iters=warmup + steps, display_interval=warmup + steps)
-    trainer = Trainer(cfg, tmp / "timed", itertools.cycle(host_batches(8, 2)), device="cuda")
+    cfg = train_config(tmp, CSS_CONFIG, compute_dtype="float32", batch_size=2, corr_impl="torch",
+                       flownet="CSS", train_all=True, finetune=())
+    model = build_model(cfg, "cpu")
+    init_params(model, torch.Generator().manual_seed(seed))
+    batch = host_batches(2, 1)[0]
+    grads = []
+    for run in range(2):
+        trainer = Trainer(cfg, tmp / f"spread_{run}", [], device="cuda", params=model.state_dict())
+        trainer.train_step(batch)
+        grads.append(torch.cat([p.grad.flatten() for p in trainer.model.parameters()]))
+    rel = (torch.linalg.vector_norm(grads[0] - grads[1]) / torch.linalg.vector_norm(grads[1])).item()
+    print(f"cuDNN's own spread, f32 CSS train_all init seed {seed} batch 2, plain step twice with "
+          f"cuDNN's default algorithms: gradient relative L2 {rel:.3e}", flush=True)
+
+
+def run_train_timed(tmp: Path, config: Path = CONFIG, warmup: int = 4, steps: int = 16,
+                    **overrides) -> None:
+    """``Trainer.run`` at 320x1152, batch 8, bf16 on batches that are ready on
+    the host: the step's time from the Trainer's own window (the checkpoint
+    saves left out), the peak memory and a profile of one step."""
+    from unflow_tpu_torch.train import Trainer
+
+    cfg = train_config(tmp, config, num_iters=warmup + steps, display_interval=warmup + steps,
+                       **overrides)
+    what = f"{cfg.train.flownet}{' train_all' if cfg.train.train_all else ''}"
+    exp_dir = tmp / f"timed_{what.replace(' ', '_')}"
+    trainer = Trainer(cfg, exp_dir, itertools.cycle(host_batches(8, 2)), device="cuda")
     trainer.run(max_iters=warmup)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the window of the one record starts at run(); the warm-up logged nothing
     trainer.run()
-    record = json.loads((tmp / "timed" / "metrics.jsonl").read_text().splitlines()[-1])
-    print(f"train Trainer.run bf16 320x1152 batch 8, host batches ready: pairs/s "
+    record = json.loads((exp_dir / "metrics.jsonl").read_text().splitlines()[-1])
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"train Trainer.run {what} bf16 320x1152 batch 8, host batches ready: pairs/s "
           f"{record['pairs_per_sec']:.3f} step_ms {record['step_ms']:.3f} over {steps} steps "
           f"(host clock, incl. host->device copies); loss {record['loss']:.5g}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+          f"{peak / 2**20:.1f} MiB ({peak / total:.3f} of the card's {total / 2**30:.1f} GiB)",
+          flush=True)
     profile_call(lambda: trainer.train_step(next(trainer.batches)), "train step",
                  record["step_ms"] / 1e3, top=14)
     # After earlier profiler sessions in one process the tracer was seen to
@@ -555,6 +702,7 @@ def run_train_timed(tmp: Path, warmup: int = 4, steps: int = 16) -> None:
     mib = sum(batch[k].nbytes for k in ("im1", "im2")) / 2**20
     print(f"  batch host->device copy ({mib:.1f} MiB, pageable): {copy_ms:.3f} ms by CUDA events "
           f"(part of each step; it may be missing from the profile above)", flush=True)
+    shutil.rmtree(exp_dir)  # its checkpoints: a cascade's is over a GB
 
 
 def run_train_profiled_f32(tmp: Path, warmup: int = 2) -> None:
@@ -578,6 +726,127 @@ def run_train_profiled_f32(tmp: Path, warmup: int = 2) -> None:
     if mine != {"corr_fwd_f32": 1, "corr_bwd_f1_f32": 1, "corr_bwd_f2_f32": 1}:
         raise AssertionError(f"the f32 train step did not launch the three f32 kernels: {mine}")
     profile_call(lambda: trainer.train_step(next(trainer.batches)), "f32 train step", wall_s, top=14)
+
+
+def run_recipe(tmp: Path) -> None:
+    """C -> cS -> csS through ``cli.train``: each run's launches, then the
+    frozen stages of the csS checkpoint against the experiments they came
+    from."""
+    from unflow_tpu_torch.cli.train import main as train_main
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+    from unflow_tpu_torch.train import restore_params
+
+    for ex, config, expected in (
+        ("kitti_c", CONFIG, dict.fromkeys(TENSOR_CORE_KERNELS, RECIPE_STEPS)),
+        ("kitti_cs", CS_CONFIG, {"corr_fwd_bf16": RECIPE_STEPS}),
+        ("kitti_css", CSS_CONFIG, {"corr_fwd_bf16": RECIPE_STEPS}),
+    ):
+        cfg = train_config(tmp, config, num_iters=RECIPE_STEPS, save_interval=2,
+                           display_interval=1)
+        reset_launch_counts()
+        t = time.perf_counter()
+        rc = train_main(["--config", str(tmp / config.name), "--ex", ex])
+        torch.cuda.synchronize()
+        mine = {k: v for k, v in launch_counts().items() if v}
+        records = [json.loads(line) for line in
+                   (cfg.experiment_dir(ex) / "metrics.jsonl").read_text().splitlines()]
+        losses = [round(r["loss"], 4) for r in records]
+        print(f"recipe cli.train {ex} ({cfg.train.flownet}, finetune {list(cfg.train.finetune)}) "
+              f"bf16 320x1152 batch 8: rc {rc} steps {RECIPE_STEPS} launches {mine} losses "
+              f"{losses} {time.perf_counter() - t:.2f} s", flush=True)
+        if rc != 0 or mine != expected:
+            raise AssertionError(f"recipe {ex}: expected launches {expected}, got {mine}")
+        if [r["step"] for r in records] != [1, 2] or not np.isfinite(losses).all():
+            raise AssertionError(f"recipe {ex}: bad metrics.jsonl {records}")
+    p_c, p_cs, p_css = (restore_params(cfg.experiment_dir(ex))
+                        for ex in ("kitti_c", "kitti_cs", "kitti_css"))
+    c_keys = [k for k in p_c if k.startswith("stage0_C.")]
+    s_keys = [k for k in p_cs if k.startswith("stage1_S.")]
+    c_equal = all(torch.equal(p_c[k], p_css[k]) for k in c_keys)
+    s_equal = all(torch.equal(p_cs[k], p_css[k]) for k in s_keys)
+    print(f"recipe: kitti_css stage0_C bit-equal to kitti_c's ({len(c_keys)} tensors): {c_equal}; "
+          f"stage1_S bit-equal to kitti_cs's ({len(s_keys)} tensors): {s_equal}", flush=True)
+    if not (c_keys and s_keys and c_equal and s_equal):
+        raise AssertionError("the csS checkpoint's frozen stages differ from their sources")
+
+
+def run_resume(tmp: Path, steps: int = 4, split: int = 2) -> None:
+    """csS (finetuned from the recipe's experiments) for ``steps`` steps in one
+    ``Trainer``, and as two segments split at ``split``: the losses after the
+    split and the parameters at the end must be identical. The step of csS
+    has no float atomics (the frozen stages' inputs and the frames need no
+    gradient), and cuDNN is held to its deterministic algorithms here."""
+    from unflow_tpu_torch.data.synthetic import batch_iterator
+    from unflow_tpu_torch.train import Trainer
+
+    cfg = train_config(tmp, CSS_CONFIG, num_iters=steps, save_interval=split, display_interval=1)
+    streams = []
+
+    def stream(start: int):
+        streams.append(batch_iterator(8, 320, 1152, seed=cfg.train.seed, start_batch=start,
+                                      num_threads=4))
+        return streams[-1]
+
+    try:
+        with deterministic_cudnn():
+            whole = Trainer(cfg, tmp / "resume_whole", stream(0), device="cuda")
+            whole.run()
+            first = Trainer(cfg, tmp / "resume_split", stream(0), device="cuda")
+            first.run(max_iters=split)
+            second = Trainer(cfg, tmp / "resume_split", stream(split), device="cuda")
+            if second.step != split:
+                raise AssertionError(f"resume: the second segment starts at step {second.step}")
+            second.run()
+    finally:
+        for s in streams:
+            s.close()
+
+    def losses(name):
+        lines = (tmp / name / "metrics.jsonl").read_text().splitlines()
+        return {r["step"]: r["loss"] for r in map(json.loads, lines) if r["step"] > split}
+
+    a, b = losses("resume_whole"), losses("resume_split")
+    with torch.no_grad():
+        diff = max((p - q).abs().max().item()
+                   for p, q in zip(whole.model.parameters(), second.model.parameters()))
+    print(f"resume csS bf16 320x1152 batch 8: losses of steps {sorted(a)} uninterrupted "
+          f"{[a[k] for k in sorted(a)]} two segments {[b[k] for k in sorted(b)]}; largest "
+          f"parameter difference {diff:.3e} (both must be identical)", flush=True)
+    if not (sorted(a) == sorted(b) == list(range(split + 1, steps + 1)) and a == b and diff == 0):
+        raise AssertionError("the resumed csS run is not bit-identical to the uninterrupted one")
+    for name in ("resume_whole", "resume_split"):
+        shutil.rmtree(tmp / name)
+
+
+def run_serving_cascade(tmp: Path) -> None:
+    """``cli.infer --ex kitti_css`` from the directory that holds ``log/``, so
+    the experiment's snapshot supplies the network."""
+    from unflow_tpu_torch.cli.infer import main as infer_main
+    from unflow_tpu_torch.data.io import read_flo, write_image
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+
+    im1, im2 = synthetic_frames(1, seed=4)
+    write_image(tmp / "css_im1.png", im1[0])
+    write_image(tmp / "css_im2.png", im2[0])
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        reset_launch_counts()
+        t = time.perf_counter()
+        rc = infer_main(["--ex", "kitti_css", "--im1", "css_im1.png", "--im2", "css_im2.png",
+                         "--out", "css.flo"])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    mine = {k: v for k, v in launch_counts().items() if v}
+    flow = read_flo(tmp / "css.flo")
+    print(f"main path cli.infer --ex kitti_css (csS, bf16): rc {rc} launches {mine} "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    if rc != 0 or mine != {"corr_fwd_bf16": 1}:
+        raise AssertionError(f"cli.infer --ex kitti_css: launches {mine}")
+    if flow.shape != (*FRAME_HW, 2) or not np.isfinite(flow).all():
+        raise AssertionError(f"bad flow from cli.infer --ex kitti_css: {flow.shape}")
+    run_eval("bfloat16", "corr_fwd_bf16", 2e-2, exp_dir=tmp / "log" / "ex" / "kitti_css")
 
 
 def main() -> int:
@@ -626,10 +895,22 @@ def main() -> int:
                 report[name]["launches"] = count
                 report[name]["main_path"] = "cli.train --set corr_stride=4, 2 step(s)"
         run_train_twin(tmp, "bfloat16", 8, 2e-2)
-        run_train_twin(tmp, "float32", 2, 1e-4)
+        run_train_twin(tmp, "float32", 2, 1e-4, control=True)
         run_train_twin(tmp, "bfloat16", 8, 2e-2, corr_stride=4)
         run_train_timed(tmp)
         run_train_profiled_f32(tmp)
+
+        run_recipe(tmp)
+        run_resume(tmp)
+        run_serving_cascade(tmp)
+        run_train_twin(tmp, "bfloat16", 8, 2e-2, config=CSS_CONFIG, flownet="CSS",
+                       train_all=True, finetune=())
+        for seed in (5, 6, 7):
+            run_train_twin(tmp, "float32", 2, 1e-4, config=CSS_CONFIG, seed=seed, control=True,
+                           flownet="CSS", train_all=True, finetune=())
+        run_cudnn_spread(tmp)
+        run_train_timed(tmp, CSS_CONFIG, finetune=())
+        run_train_timed(tmp, CSS_CONFIG, flownet="CSS", train_all=True, finetune=())
 
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -4,11 +4,12 @@ Port of ``unflow_tpu/cli/infer.py``: pads the pair to the /64 pyramid
 size, runs the network and writes the flow as ``.flo``, KITTI 16-bit PNG
 and/or a color visualization. It runs on the GPU unless ``--device cpu``.
 
-  python -m unflow_tpu_torch.cli.infer --random-init --config configs/kitti_unsup_c.ini \\
-      --im1 f1.png --im2 f2.png --out flow.flo --viz flow.png
+  python -m unflow_tpu_torch.cli.infer --ex kitti_css --im1 f1.png --im2 f2.png \\
+      --out flow.flo --viz flow.png
 
-``--random-init`` runs a network initialized from ``--seed``; restoring an
-experiment (``--ex``) needs a checkpoint format the port does not have yet.
+``--ex`` restores the experiment's latest checkpoint, and its snapshot
+supplies the network (unless ``--config`` is given); ``--random-init`` runs
+a network initialized from ``--seed`` instead.
 """
 
 from __future__ import annotations
@@ -44,25 +45,28 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not (args.out or args.viz):
         ap.error("nothing to do: pass --out and/or --viz")
-    if not args.random_init:
-        ap.error(
-            "--ex restore is not available yet: the port has no checkpoint format; "
-            "use --random-init"
-        )
+    if not args.random_init and args.ex is None:
+        ap.error("--ex is required unless --random-init")
 
     # --config applies with or without --ex (a --random-init run still
     # needs it for the net spec and dataset normalization).
     cfg = load_config(args.config) if args.config else Config()
-    if args.ex is not None and args.config is None:
-        snapshot = cfg.experiment_dir(args.ex) / "config.ini"
-        if snapshot.exists():
+    exp_dir = None
+    if args.ex is not None:
+        exp_dir = cfg.experiment_dir(args.ex)
+        snapshot = exp_dir / "config.ini"
+        if args.config is None and snapshot.exists():
             cfg = load_config(snapshot)  # the snapshot knows the net spec
+    # the checkpoint was trained with its dataset's normalization
     norm = dataset_normalization(cfg.train.dataset) or DEFAULT_NORMALIZATION
 
     device = resolve_device(args.device)  # before the model: no GPU fails fast
-    model = build_model(cfg, "cpu")
-    init_params(model, torch.Generator().manual_seed(args.seed))
-    ev = Evaluator(cfg, params=model.state_dict(), normalization=norm, device=device)
+    params = None
+    if args.random_init:
+        model = build_model(cfg, "cpu")
+        init_params(model, torch.Generator().manual_seed(args.seed))
+        params = model.state_dict()
+    ev = Evaluator(cfg, exp_dir, params=params, normalization=norm, device=device)
 
     im1 = read_image(args.im1)
     im2 = read_image(args.im2)

@@ -13,16 +13,16 @@ to ``torch``/``cuda`` --, ``max_displacement``, ``corr_stride``), ``dataset``
 (``synthetic`` trains; the others only name a normalization so far), the
 train step (``batch_size``, ``height``, ``width``, ``num_iters``,
 ``learning_rate``, ``decay_after``, ``decay_interval``, ``weight_decay``,
-``grad_clip_norm``, ``display_interval``, ``seed``, ``num_threads``,
-``train_all``), the loss (the ``*_weight`` keys, ``mask_occlusion``,
-``border_ratio``) and the augmentation (``aug_swap_prob``,
-``aug_photometric``, ``aug_hflip``, ``aug_noise_stddev``).
+``grad_clip_norm``, ``display_interval``, ``save_interval``, ``seed``,
+``num_threads``, ``train_all``, ``finetune``), the loss (the ``*_weight``
+keys, ``mask_occlusion``, ``border_ratio``) and the augmentation
+(``aug_swap_prob``, ``aug_photometric``, ``aug_hflip``,
+``aug_noise_stddev``).
 ``conv_impl``, ``deconv_impl`` and ``remat`` select XLA lowerings on the TPU;
 they are accepted and ignored. Keys of parts that are not ported yet
-(``supervised``, ``finetune``, the affine ``aug_*`` ranges, ``eval_interval``,
+(``supervised``, the affine ``aug_*`` ranges, ``eval_interval``,
 ``tensorboard``, ``image_summary_interval`` > 0, ``num_devices`` > 1,
-``spatial_shards`` > 1) make the trainer raise when they ask for those parts;
-``save_interval`` is not read, because nothing is saved yet.
+``spatial_shards`` > 1) make the trainer raise when they ask for those parts.
 """
 
 from __future__ import annotations

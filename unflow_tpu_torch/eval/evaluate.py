@@ -19,12 +19,14 @@ from unflow_tpu_torch.config import Config
 from unflow_tpu_torch.data import DEFAULT_NORMALIZATION
 from unflow_tpu_torch.device import resolve_device
 from unflow_tpu_torch.models import DTYPES, build_model, full_res_flow
+from unflow_tpu_torch.train.checkpoint import restore_params
 
 
 class Evaluator:
-    """``params``: a ``state_dict`` of the config's network (for example from
-    :func:`unflow_tpu_torch.convert.params_from_flax`). The parameters are
-    cast once to the config's ``compute_dtype``."""
+    """The network of ``cfg`` with ``params``, a ``state_dict`` (for example
+    from :func:`unflow_tpu_torch.convert.params_from_flax`), or else with the
+    parameters of ``exp_dir``'s latest checkpoint. The parameters are cast
+    once to the config's ``compute_dtype``."""
 
     def __init__(
         self,
@@ -35,10 +37,9 @@ class Evaluator:
         device: torch.device | str | None = None,
     ):
         if params is None:
-            raise NotImplementedError(
-                f"cannot restore {exp_dir}: the port has no checkpoint format yet; "
-                "pass params= (a state_dict)"
-            )
+            if exp_dir is None:
+                raise ValueError("pass params= (a state_dict) or exp_dir= (an experiment)")
+            params = restore_params(exp_dir)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.normalization = normalization

@@ -8,6 +8,7 @@ from unflow_tpu_torch.config import Config
 from unflow_tpu_torch.models.flownet import (
     FLOW_SCALE,
     FlowNetC,
+    FlowNetS,
     FlowNetStack,
     full_res_flow,
     init_params,
@@ -19,8 +20,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def build_model(cfg: Config, device: torch.device | str) -> FlowNetStack:
     """The network of ``cfg`` (port of ``unflow_tpu/train/trainer.py::
-    build_model``), float32 parameters in channels_last memory on
-    ``device``."""
+    build_model``): the stack of ``flownet``, float32 parameters in
+    channels_last memory on ``device``."""
     t = cfg.train
     model = FlowNetStack(
         spec=t.flownet,
@@ -36,6 +37,7 @@ __all__ = [
     "DTYPES",
     "FLOW_SCALE",
     "FlowNetC",
+    "FlowNetS",
     "FlowNetStack",
     "build_model",
     "full_res_flow",

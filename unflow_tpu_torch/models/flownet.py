@@ -1,10 +1,11 @@
-"""FlowNetC and its decoder, in PyTorch.
+"""FlowNetS, FlowNetC, their decoder and the stacked cascades, in PyTorch.
 
 Port of ``unflow_tpu/models/flownet.py`` (``FLOW_SCALE``, ``_Decoder``,
-``FlowNetC``, ``full_res_flow`` and a one-stage ``FlowNetStack``). The
+``FlowNetS``, ``FlowNetC``, ``full_res_flow`` and ``FlowNetStack``). The
 structure and the parameter names follow the flax modules, so that
 :func:`unflow_tpu_torch.convert.params_from_flax` maps a JAX param tree onto
-``state_dict`` keys one to one:
+``state_dict`` keys one to one (``stage1_S.conv1.weight`` is flax's
+``stage1_S/conv1/kernel``). FlowNetC:
 
   * conv1-3 form a shared tower (7x7/2·64, 5x5/2·128, 5x5/2·256), run here
     once on both frames stacked along the batch (inference), or once on the
@@ -15,6 +16,11 @@ structure and the parameter names follow the flax modules, so that
     channels) of frame 1;
   * the trunk conv3_1 .. conv6_1 and a decoder of 4x4/2 transposed convs
     that predicts flow at five scales, finest (1/4 resolution) first.
+
+FlowNetS runs the same ten convs (conv1 7x7/2·64 ... conv6_1·1024) on its
+channel-concatenated input and the same decoder. A stack stage after the
+first is a FlowNetS on ``[im1, im2, im2 warped by the previous flow, that
+flow, the brightness error]`` (12 channels).
 
 Tensors are NCHW in ``channels_last`` memory, so ``x.permute(0, 2, 3, 1)``
 hands the correlation a contiguous NHWC view. ``compute_dtype`` runs the
@@ -35,6 +41,7 @@ from unflow_tpu_torch.ops import correlation
 from unflow_tpu_torch.ops.conv2d import Conv2dSame
 from unflow_tpu_torch.ops.correlation import displacement_count
 from unflow_tpu_torch.ops.downsample import resize_bilinear
+from unflow_tpu_torch.ops.warp import backward_warp
 
 FLOW_SCALE = 5.0
 
@@ -167,28 +174,93 @@ def full_res_flow(flows: Sequence[torch.Tensor], height: int, width: int) -> tor
     return resize_bilinear(flows[0] * (4.0 * FLOW_SCALE), height, width)
 
 
+class FlowNetS(nn.Module):
+    """FlowNet-Simple on channel-concatenated inputs: ``in_channels`` is 6
+    for a first stage (the two frames), 12 for a refinement stage."""
+
+    def __init__(self, in_channels: int, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.conv1 = Conv2dSame(in_channels, 64, 7, 2)
+        self.conv2 = Conv2dSame(64, 128, 5, 2)
+        self.conv3 = Conv2dSame(128, 256, 5, 2)
+        self.conv3_1 = Conv2dSame(256, 256, 3)
+        self.conv4 = Conv2dSame(256, 512, 3, 2)
+        self.conv4_1 = Conv2dSame(512, 512, 3)
+        self.conv5 = Conv2dSame(512, 512, 3, 2)
+        self.conv5_1 = Conv2dSame(512, 512, 3)
+        self.conv6 = Conv2dSame(512, 1024, 3, 2)
+        self.conv6_1 = Conv2dSame(1024, 1024, 3)
+        self.decoder = Decoder()
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """``(B, in_channels, H, W)`` -> five float32 flows."""
+        x = x.to(dtype=self.compute_dtype, memory_format=torch.channels_last)
+        c2 = _leaky(self.conv2(_leaky(self.conv1(x))))
+        c3_1 = _leaky(self.conv3_1(_leaky(self.conv3(c2))))
+        c4_1 = _leaky(self.conv4_1(_leaky(self.conv4(c3_1))))
+        c5_1 = _leaky(self.conv5_1(_leaky(self.conv5(c4_1))))
+        c6_1 = _leaky(self.conv6_1(_leaky(self.conv6(c5_1))))
+        return self.decoder(c2, c3_1, c4_1, c5_1, c6_1)
+
+
 class FlowNetStack(nn.Module):
-    """The stack of a spec string; this slice supports the one-stage ``C``
-    (trainable) and ``c`` (frozen) specs. Returns one 5-scale flow list per
-    stage."""
+    """The cascade of a spec string: ``S``, ``C``, ``cS``, ``CS``, ``csS``,
+    ``CSS`` and the like. The first stage is a FlowNetC or a FlowNetS; every
+    later one is a FlowNetS. Uppercase stages are trainable; lowercase ones
+    are frozen: their flows are detached here, and the trainer gives their
+    parameters no gradient. Each stage is the submodule ``stage{i}_{C|S}``.
+    Returns one 5-scale flow list per stage, finest first, in network units.
+    ``remat`` (per-stage rematerialization in the JAX package) is not
+    ported."""
 
     def __init__(self, spec: str = "C", compute_dtype: torch.dtype = torch.float32,
                  corr_impl: str | None = None, max_displacement: int = 20, corr_stride: int = 2):
         super().__init__()
-        if spec not in ("C", "c"):
-            raise NotImplementedError(
-                f"flownet spec {spec!r}: the port runs FlowNetC ('C' or 'c') only so far"
+        if not spec or spec[0].upper() not in ("C", "S"):
+            raise ValueError(f"bad stack spec {spec!r}")
+        if any(ch.upper() != "S" for ch in spec[1:]):
+            raise ValueError(
+                f"only FlowNetS refinement stages are supported after the first net (spec {spec!r})"
             )
         self.spec = spec
-        self.stage0_C = FlowNetC(compute_dtype, max_displacement, corr_stride, corr_impl)
+        self.compute_dtype = compute_dtype
+        for i, ch in enumerate(spec):
+            if i == 0 and ch.upper() == "C":
+                net = FlowNetC(compute_dtype, max_displacement, corr_stride, corr_impl)
+            else:
+                net = FlowNetS(6 if i == 0 else 12, compute_dtype)
+            self.add_module(f"stage{i}_{ch.upper()}", net)
 
     def forward(
         self, im1: torch.Tensor, im2: torch.Tensor, pair_flipped_im2: bool = False
     ) -> list[list[torch.Tensor]]:
-        flows = self.stage0_C(im1, im2, pair_flipped_im2)
-        if self.spec.islower():
-            flows = [f.detach() for f in flows]
-        return [flows]
+        """``pair_flipped_im2`` reaches only a first-stage FlowNetC."""
+        h, w = im1.shape[-2:]
+        dt = self.compute_dtype
+        stage_flows: list[list[torch.Tensor]] = []
+        flow_prev = None
+        for i, ch in enumerate(self.spec):
+            net = getattr(self, f"stage{i}_{ch.upper()}")
+            if i == 0:
+                if ch.upper() == "C":
+                    flows = net(im1, im2, pair_flipped_im2)
+                else:
+                    flows = net(torch.cat([im1, im2], 1))
+            else:
+                # the glue runs in compute_dtype; flow_prev stays float32,
+                # because the warp's sample coordinates need it
+                warped = backward_warp(im2.to(dt), flow_prev)
+                # eps inside the root: the gradient of a plain norm is NaN at
+                # a zero difference, which bfloat16 makes common
+                err = torch.sqrt(torch.sum(torch.square(im1.to(dt) - warped), 1, keepdim=True)
+                                 + 1e-6)
+                flows = net(torch.cat([im1.to(dt), im2.to(dt), warped, flow_prev.to(dt), err], 1))
+            if ch.islower():
+                flows = [f.detach() for f in flows]
+            stage_flows.append(flows)
+            flow_prev = full_res_flow(flows, h, w)
+        return stage_flows
 
 
 def _truncated_normal(shape: torch.Size, std: float, generator: torch.Generator) -> torch.Tensor:

@@ -1,15 +1,19 @@
-"""Training loop of the unsupervised UnFlow-C recipe.
+"""Training loop of the unsupervised UnFlow recipe and its cascades.
 
 Port of ``unflow_tpu/train/trainer.py`` (``build_model``, ``build_optimizer``,
 ``TrainState``, ``make_train_step``, ``Trainer``): augmentation on the device,
-one FlowNetC apply on the interleaved forward/backward 2x batch, the 5-scale
-unsupervised loss, backward and Adam with a piecewise-halved learning rate.
-PyTorch runs eagerly, so the step is a plain function that updates the model
-and the optimizer of its :class:`TrainState` in place; there is no jit and
-no mesh. Not ported yet, each raising or saying so when asked for:
-checkpoints and resume (ROADMAP A11: nothing is saved), ``finetune`` (A7),
-``supervised`` (A8), in-training evaluation (A10), the affine augmentation,
-image summaries, tensorboard and several devices (A13).
+one apply of the stack (C, cS, csS, CSS ...) on the interleaved
+forward/backward 2x batch, the 5-scale unsupervised loss of the last stage
+(of every stage with ``train_all``), backward and Adam with a
+piecewise-halved learning rate. PyTorch runs eagerly, so the step is a plain
+function that updates the model and the optimizer of its :class:`TrainState`
+in place; there is no jit and no mesh. The :class:`Trainer` initializes the
+stages of a fresh experiment from the ``finetune`` experiments, resumes an
+experiment from its latest checkpoint and saves every ``save_interval``
+steps (``train/checkpoint.py``). Not ported yet, each raising or saying so
+when asked for: ``supervised`` (ROADMAP A8), in-training evaluation (A10),
+the affine augmentation, image summaries, tensorboard and several devices
+(A13).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from unflow_tpu_torch.data import DEFAULT_NORMALIZATION
 from unflow_tpu_torch.device import resolve_device
 from unflow_tpu_torch.losses import unsupervised_loss
 from unflow_tpu_torch.models import FlowNetStack, build_model, init_params
+from unflow_tpu_torch.train.checkpoint import CheckpointManager, init_stages_from
 from unflow_tpu_torch.train.schedule import piecewise_halving
 from unflow_tpu_torch.utils import MetricsLogger
 
@@ -72,8 +77,6 @@ def _check_ported(cfg: Config) -> None:
     t = cfg.train
     if t.supervised:
         raise NotImplementedError("supervised training is not ported yet: ROADMAP item A8")
-    if t.finetune:
-        raise NotImplementedError("finetune (init_stages_from) is not ported yet: ROADMAP item A7")
     if any(getattr(t, key) != default for key, default in _AFFINE_DEFAULTS.items()):
         raise NotImplementedError("the affine augmentation is not ported yet: ROADMAP item A13")
     if t.eval_interval:
@@ -189,7 +192,9 @@ class Trainer:
 
     Args:
       cfg: full config.
-      exp_dir: experiment directory (``metrics.jsonl``).
+      exp_dir: experiment directory (``metrics.jsonl``, ``checkpoints/``). If
+        it holds a checkpoint, the model, Adam's moments and the step are
+        restored from the latest one.
       batch_iterator: infinite iterator of host batches ``{'im1', 'im2'}``,
         numpy ``(batch, H >= height, W >= width, 3)``, float32 in [0, 1] or
         uint8.
@@ -199,6 +204,9 @@ class Trainer:
       params: a ``state_dict`` to start from (for example from
         :func:`unflow_tpu_torch.convert.params_from_flax`); else the
         parameters are drawn from ``cfg.train.seed``.
+      finetune_dirs: experiment directories whose checkpoints initialize the
+        stages of a fresh start (:func:`init_stages_from`); by default those
+        of ``cfg.train.finetune``, named under ``<log>/ex/``.
     """
 
     def __init__(
@@ -209,7 +217,9 @@ class Trainer:
         normalization=DEFAULT_NORMALIZATION,
         device: torch.device | str | None = None,
         params: dict[str, torch.Tensor] | None = None,
+        finetune_dirs: Iterable[str | Path] = (),
     ):
+        t = cfg.train
         self.cfg = cfg
         self.exp_dir = Path(exp_dir)
         self.batches = iter(batch_iterator)
@@ -218,20 +228,29 @@ class Trainer:
 
         model = build_model(cfg, "cpu")
         if params is None:
-            init_params(model, torch.Generator().manual_seed(cfg.train.seed))
+            init_params(model, torch.Generator().manual_seed(t.seed))
         else:
             model.load_state_dict(params)
-        for i, ch in enumerate(cfg.train.flownet):
+        self.ckpt = CheckpointManager(self.exp_dir)
+        latest = self.ckpt.latest_step()
+        # the finetune stages initialize a fresh start only: a resume restores
+        # every parameter from its own checkpoint below
+        finetune_dirs = list(finetune_dirs) or [cfg.experiment_dir(name) for name in t.finetune]
+        if latest is None and finetune_dirs:
+            model.load_state_dict(init_stages_from(model.state_dict(), finetune_dirs))
+        # before the optimizer is built, which restores Adam's state by
+        # parameter order
+        for i, ch in enumerate(t.flownet):
             if ch.islower():  # a frozen stage: no gradient, no optimizer state
                 for name, p in model.named_parameters():
                     if name.startswith(f"stage{i}_"):
                         p.requires_grad_(False)
         model = model.to(device=self.device, memory_format=torch.channels_last).train()
         self.state = TrainState(model, build_optimizer(cfg, model))
+        if latest is not None:
+            self.state.step = self.ckpt.restore(model, self.state.optimizer)
         self.logger = MetricsLogger(self.exp_dir)
-        print(f"{self.exp_dir}: checkpoints are not ported yet (ROADMAP item A11): "
-              "this run saves nothing and cannot be resumed")
-        if cfg.train.image_summary_interval == 0:
+        if t.image_summary_interval == 0:
             print("image summaries are not ported yet (ROADMAP item A13): none are written")
 
     @property
@@ -254,20 +273,27 @@ class Trainer:
         the step's logs as 0-d tensors, without waiting for the device."""
         return self._step_fn(self.state, self.put_batch(batch))
 
+    def save(self) -> None:
+        """Checkpoint the model, the optimizer and the step."""
+        self.ckpt.save(self.state.step, self.state.model, self.state.optimizer)
+
     def run(self, max_iters: int | None = None) -> dict:
-        """Train until ``cfg.train.num_iters`` (or ``max_iters``). Returns
-        the last step's logs as floats.
+        """Train until ``cfg.train.num_iters`` (or ``max_iters``),
+        checkpointing every ``save_interval`` steps and at the end. Returns
+        the last step's logs as floats. Rerunning on the same experiment
+        resumes from its latest checkpoint.
 
         The step count lives on the host and no value is read back from the
         device between display intervals, so steps queue up on the device.
         At each display interval the logs are read (which waits for the
         device) and written to ``metrics.jsonl`` with ``pairs_per_sec`` and
-        ``step_ms`` of the window since the last one.
+        ``step_ms`` of the window since the last one; the time of the saves
+        in the window is left out.
         """
         t = self.cfg.train
         target = min(max_iters or t.num_iters, t.num_iters)
         logs: dict = {}
-        pairs_accum, t_last = 0, time.perf_counter()
+        pairs_accum, t_last, pause_s = 0, time.perf_counter(), 0.0
         while self.state.step < target:
             batch = next(self.batches)
             logs = self.train_step(batch)
@@ -276,10 +302,19 @@ class Trainer:
             if self.state.step % t.display_interval == 0:
                 record = {k: float(v) for k, v in logs.items()}  # waits for the device
                 now = time.perf_counter()
-                work_s = max(now - t_last, 1e-9)
+                work_s = max(now - t_last - pause_s, 1e-9)
                 record["pairs_per_sec"] = pairs_accum / work_s
                 record["step_ms"] = 1e3 * work_s / max(pairs_accum / max(batch_size, 1), 1)
                 self.logger.log(self.state.step, record)
                 # the window restarts after the write, which leaves that pause out
-                pairs_accum, t_last = 0, time.perf_counter()
+                pairs_accum, t_last, pause_s = 0, time.perf_counter(), 0.0
+            if self.state.step % t.save_interval == 0 or self.state.step >= target:
+                if self.device.type == "cuda":
+                    # the steps still queued stay in the window: only the save leaves it
+                    torch.cuda.synchronize(self.device)
+                t0 = time.perf_counter()
+                self.save()
+                pause_s += time.perf_counter() - t0
+        if self.ckpt.latest_step() != self.state.step:
+            self.save()
         return {k: float(v) for k, v in logs.items()}
