@@ -13,9 +13,10 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 past the dispatch) against its plain PyTorch
                 version on the card (tolerance 1e-5 * max|ref| in float32, 0.02 *
                 max|ref| in bfloat16), at the training geometry (16, 40, 144,
-                256), the eval geometry (4, 48, 160, 256), both with
-                max_displacement 20 and stride 2, an odd case (W a multiple
-                of no tile, stride 1), and the training geometry with stride 4,
+                256), the eval geometry (4, 48, 160, 256), the held-out run's
+                (16, 16, 32, 256), all with max_displacement 20 and stride 2, an
+                odd case (W a multiple of no tile, stride 1), and the training
+                geometry with stride 4,
                 which the dispatch sends to the FP32-core kernels' run-time
                 stride (in bfloat16 to the three ``*_simt`` twins; their reported
                 numbers are from this case). Times are medians of 20 launches,
@@ -82,6 +83,32 @@ Phases; any failure raises and the script exits non-zero without a result line:
   9. timed cascades -- ``Trainer.run`` for csS and for CSS (``train_all``) at
                 320x1152, batch 8, bf16, on ready host batches: step time, peak
                 memory and a profile of one step, as for C.
+ 10. real-data training -- a KITTI raw tree (2 drives of 9 frames at 375x1242,
+                PNG, rendered from smooth textures) and a KITTI 2012 training
+                tree (8 pairs of ``data/synthetic.py::make_pair`` at 375x1242,
+                max_shift 32, ``flow_occ`` and a smaller ``flow_noc`` as 16-bit
+                PNGs) are written; ``cli.pack`` packs the raw tree at 320x1152;
+                ``cli.train`` (configs/kitti_unsup_c.ini, ``dataset=kitti_raw``,
+                ``packed_dir``, ``eval_interval`` 6) runs 12 steps at batch 8,
+                bf16: each of the three tensor-core kernels launches once per
+                step (the forward once more per evaluation, on KITTI 2012's
+                pairs), no ``*_simt``, the loss is finite and ``eval/aee`` is
+                logged. The same run through the decoding Loader (no
+                ``packed_dir``) follows; both pairs/s (steps 5-12, the
+                Trainer's windows of 4 steps, eval pauses left out) are printed
+                beside the ready-batch figure of phase 4.
+ 11. real-data evaluation -- ``cli.eval --ex kitti_real --dataset kitti_2012
+                --batch 4`` prints AEE, Fl and the noc/occ breakdown and launches
+                ``corr_fwd_bf16`` once per batch; ``Evaluator.run`` on the same
+                weights through the kernel against the plain correlation (which
+                launches no kernel): the 8 predicted flows within 2e-2 relative
+                L2 in bf16, 1e-4 in f32 (TF32 off, through ``corr_fwd_f32``),
+                and its pairs/s.
+ 12. held-out, short -- ``python -m unflow_tpu_torch.heldout`` at 128x256, batch
+                8, a 64-pair corpus, 4 steps in 2 segments across
+                ``--bootstrap-until 2``: the zero-flow AEE is 15.3428, the curve
+                finite, and the three tensor-core kernels launch (the forward
+                also for each held-out batch).
 
 Prints the GPU's name and power limit first, then a line per check, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -95,6 +122,7 @@ import itertools
 import json
 import statistics
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -130,6 +158,11 @@ SIMT_CASE = "stride4"
 TRAIN_STEPS = 12
 RECIPE_STEPS = 2
 TENSOR_CORE_KERNELS = ("corr_fwd_bf16", "corr_bwd_f1_bf16", "corr_bwd_f2_bf16")
+# the real-data phases' trees, at KITTI's geometry
+KITTI_RAW_DRIVES = ("2011_09_26_drive_0001_sync", "2011_09_26_drive_0002_sync")
+RAW_FRAMES = 9
+KITTI_PAIRS = 8
+REAL_EVAL_INTERVAL = 6
 # profile rows by the words in a kernel's name; the first group that matches
 PROFILE_GROUPS = {
     "correlation kernels (this repo)": (
@@ -155,6 +188,7 @@ KERNEL_CASES = [
     ("eval", (4, 48, 160, 256), 20, 2),
     ("odd", (2, 24, 75, 256), 10, 1),
     (SIMT_CASE, (16, 40, 144, 256), 20, 4),
+    ("heldout", (16, 16, 32, 256), 20, 2),  # the held-out run: 128x256, batch 8
 ]
 
 
@@ -487,15 +521,16 @@ def run_eval(dtype: str, kernel: str, tolerance: float,
     return launches, pairs_per_s
 
 
-def train_config(tmp: Path, config: Path = CONFIG, **overrides):
-    """``config`` with ``dataset=synthetic``, its log directory under ``tmp``
-    and ``overrides`` applied; also written to ``tmp/<config's name>`` for the
-    CLI."""
+def train_config(tmp: Path, config: Path = CONFIG, dataset: str = "synthetic", **overrides):
+    """``config`` with ``dataset`` (synthetic unless given), its data and log
+    directories under ``tmp`` and ``overrides`` applied; also written to
+    ``tmp/<config's name>`` for the CLI."""
     from unflow_tpu_torch.config import load_config, save_config
 
     cfg = load_config(config)
+    cfg.dirs.data = str(tmp / "data")
     cfg.dirs.log = str(tmp / "log")
-    cfg.train.dataset = "synthetic"
+    cfg.train.dataset = dataset
     for key, value in overrides.items():
         setattr(cfg.train, key, value)
     save_config(cfg, tmp / config.name)
@@ -703,6 +738,7 @@ def run_train_timed(tmp: Path, config: Path = CONFIG, warmup: int = 4, steps: in
     print(f"  batch host->device copy ({mib:.1f} MiB, pageable): {copy_ms:.3f} ms by CUDA events "
           f"(part of each step; it may be missing from the profile above)", flush=True)
     shutil.rmtree(exp_dir)  # its checkpoints: a cascade's is over a GB
+    return record["pairs_per_sec"]
 
 
 def run_train_profiled_f32(tmp: Path, warmup: int = 2) -> None:
@@ -849,6 +885,212 @@ def run_serving_cascade(tmp: Path) -> None:
     run_eval("bfloat16", "corr_fwd_bf16", 2e-2, exp_dir=tmp / "log" / "ex" / "kitti_css")
 
 
+def write_kitti_trees(data: Path) -> None:
+    """Under ``data``: a KITTI raw tree, ``KITTI_RAW_DRIVES`` of ``RAW_FRAMES``
+    frames at 375x1242 (a smooth texture moving 4 px right and 2 px down a
+    frame), and a KITTI 2012 training tree of ``KITTI_PAIRS`` pairs from the
+    synthetic renderer (max_shift 32), whose ``flow_occ`` is valid below the
+    top quarter (KITTI has no ground truth in the sky) and whose ``flow_noc``
+    keeps of those the pixels that stay inside the frame."""
+    from unflow_tpu_torch.data.io import write_image, write_kitti_png_flow
+    from unflow_tpu_torch.data.synthetic import make_pair
+
+    h, w = FRAME_HW
+    gen = torch.Generator().manual_seed(10)
+    for drive in KITTI_RAW_DRIVES:
+        frames = data / "kitti_raw" / drive / "image_02" / "data"
+        frames.mkdir(parents=True)
+        coarse = torch.rand(1, 3, (h + 2 * RAW_FRAMES) // 8 + 2, (w + 4 * RAW_FRAMES) // 8 + 2,
+                            generator=gen)
+        tex = torch.nn.functional.interpolate(coarse, scale_factor=8, mode="bilinear")
+        tex = tex[0].permute(1, 2, 0).numpy()
+        for f in range(RAW_FRAMES):
+            write_image(frames / f"{f:010d}.png", tex[2 * f : 2 * f + h, 4 * f : 4 * f + w])
+    base = data / "kitti_2012" / "training"
+    for sub in ("colored_0", "flow_occ", "flow_noc"):
+        (base / sub).mkdir(parents=True)
+    rng = np.random.RandomState(11)
+    ys, xs = np.mgrid[0:h, 0:w]
+    for i in range(KITTI_PAIRS):
+        im1, im2, flow = make_pair(rng, h, w, max_shift=32.0)
+        write_image(base / "colored_0" / f"{i:06d}_10.png", im1)
+        write_image(base / "colored_0" / f"{i:06d}_11.png", im2)
+        valid = np.ones((h, w, 1), np.float32)
+        valid[: h // 4] = 0.0
+        tx, ty = xs + flow[..., 0], ys + flow[..., 1]
+        inside = (tx >= 0) & (tx <= w - 1) & (ty >= 0) & (ty <= h - 1)
+        write_kitti_png_flow(base / "flow_occ" / f"{i:06d}_10.png", flow, valid)
+        write_kitti_png_flow(base / "flow_noc" / f"{i:06d}_10.png", flow,
+                             valid * inside[..., None])
+
+
+def run_real_train(tmp: Path, ready_pairs_per_s: float) -> dict[str, int]:
+    """``cli.pack`` of the KITTI raw tree at 320x1152, then ``cli.train`` on it
+    (configs/kitti_unsup_c.ini, bf16, batch 8) through the packed Loader and
+    through the decoding Loader, evaluating on KITTI 2012's pairs every
+    ``REAL_EVAL_INTERVAL`` steps; returns the launch counts of the packed run."""
+    from unflow_tpu_torch.cli.pack import main as pack_main
+    from unflow_tpu_torch.cli.train import main as train_main
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+
+    t = time.perf_counter()
+    rc = pack_main(["--dataset", "kitti_raw", "--data-dir", str(tmp / "data"), "--out",
+                    str(tmp / "packed"), "--height", "320", "--width", "1152"])
+    print(f"real data cli.pack kitti_raw at 320x1152: rc {rc} {time.perf_counter() - t:.2f} s",
+          flush=True)
+    if rc != 0:
+        raise AssertionError("cli.pack failed")
+    pairs_per_s, counts = {}, {}
+    for ex, loader, extra in (("kitti_real", "packed", ["--set", f"packed_dir={tmp / 'packed'}"]),
+                              ("kitti_real_decoded", "decoding", [])):
+        cfg = train_config(tmp, dataset="kitti_raw", num_iters=TRAIN_STEPS, display_interval=4,
+                           eval_interval=REAL_EVAL_INTERVAL)
+        reset_launch_counts()
+        t = time.perf_counter()
+        rc = train_main(["--config", str(tmp / CONFIG.name), "--ex", ex, *extra])
+        torch.cuda.synchronize()
+        mine = {k: v for k, v in launch_counts().items() if v}
+        records = [json.loads(line) for line in
+                   (cfg.experiment_dir(ex) / "metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in records if "loss" in r]
+        evals = [r["eval/aee"] for r in records if "eval/aee" in r]
+        expected = {"corr_fwd_bf16": TRAIN_STEPS + len(evals), "corr_bwd_f1_bf16": TRAIN_STEPS,
+                    "corr_bwd_f2_bf16": TRAIN_STEPS}
+        last = steps[-1]
+        # the Trainer's windows of 4 steps leave the eval pauses out; the
+        # first holds the warm-up, the others together are steps 5-12
+        windows = [r["pairs_per_sec"] for r in steps]
+        rate = len(windows[1:]) / sum(1 / p for p in windows[1:])
+        print(f"real data cli.train kitti_raw ({loader} Loader) bf16 320x1152 batch 8: rc {rc} "
+              f"steps {last['step']} launches {mine} (the forward once more per evaluation) "
+              f"loss {last['loss']:.5g} eval/aee {[round(v, 4) for v in evals]} pairs/s "
+              f"{rate:.3f} over steps 5-{TRAIN_STEPS} (windows of 4 steps: "
+              f"{[round(p, 3) for p in windows]}) {time.perf_counter() - t:.2f} s", flush=True)
+        if rc != 0 or mine != expected or last["step"] != TRAIN_STEPS:
+            raise AssertionError(f"cli.train on kitti_raw ({loader}): launches {mine}")
+        if len(evals) != TRAIN_STEPS // REAL_EVAL_INTERVAL or not np.isfinite(
+                [r["loss"] for r in steps] + evals).all():
+            raise AssertionError(f"cli.train on kitti_raw ({loader}): bad metrics.jsonl {records}")
+        pairs_per_s[loader] = rate
+        counts.setdefault("packed", mine)
+    shutil.rmtree(cfg.experiment_dir("kitti_real_decoded"))
+    print(f"real data train pairs/s, bf16 320x1152 batch 8: packed Loader "
+          f"{pairs_per_s['packed']:.3f}, decoding Loader {pairs_per_s['decoding']:.3f}, ready host "
+          f"batches (Trainer.run above) {ready_pairs_per_s:.3f}", flush=True)
+    return counts["packed"]
+
+
+def run_real_eval(tmp: Path) -> dict[str, int]:
+    """``cli.eval --ex kitti_real`` on the KITTI 2012 tree, then
+    ``Evaluator.run`` on the same weights through the kernel against the plain
+    correlation, in bf16 and in f32; returns the launch counts of each."""
+    import io
+
+    from unflow_tpu_torch.cli.eval import main as eval_main
+    from unflow_tpu_torch.config import load_config
+    from unflow_tpu_torch.data import dataset_normalization, get_dataset
+    from unflow_tpu_torch.eval.evaluate import Evaluator
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+
+    batches = KITTI_PAIRS // 4
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the experiment lives under ./log
+    try:
+        reset_launch_counts()
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = eval_main(["--ex", "kitti_real", "--dataset", "kitti_2012", "--batch", "4"])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    mine = {k: v for k, v in launch_counts().items() if v}
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"real data cli.eval --ex kitti_real --dataset kitti_2012 --batch 4 (375x1242): rc {rc} "
+          f"launches {mine} {time.perf_counter() - t:.2f} s: {line}", flush=True)
+    numbers = [float(x) for x in re.findall(r"=([-\d.naninf]+)", line)]
+    if rc != 0 or mine != {"corr_fwd_bf16": batches} or not np.isfinite(numbers).all():
+        raise AssertionError(f"cli.eval: launches {mine}, line {line!r}")
+    if not all(w in line for w in ("AEE=", "Fl=", f"(n={KITTI_PAIRS})", "| noc: AEE=",
+                                   "| occ-only: AEE=")):
+        raise AssertionError(f"cli.eval printed no noc/occ breakdown: {line!r}")
+
+    exp_dir = tmp / "log" / "ex" / "kitti_real"
+    examples = get_dataset("kitti_2012", tmp / "data").eval_examples("occ")
+    norm = dataset_normalization("kitti_raw")
+    counts = {}
+    for dtype, kernel, tolerance in (("bfloat16", "corr_fwd_bf16", 2e-2),
+                                     ("float32", "corr_fwd_f32", 1e-4)):
+        cfg = load_config(exp_dir / "config.ini")
+        cfg.train.compute_dtype = dtype
+        ev = Evaluator(cfg, exp_dir, normalization=norm, device="cuda")
+        ev.run(examples, eval_batch=4)  # warm-up: cuDNN picks its algorithms
+        reset_launch_counts()
+        t = time.perf_counter()
+        got = ev.run(examples, eval_batch=4, collect=KITTI_PAIRS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        mine = {k: v for k, v in launch_counts().items() if v}
+        ref_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, corr_impl="torch"))
+        reset_launch_counts()
+        want = Evaluator(ref_cfg, exp_dir, normalization=norm, device="cuda").run(
+            examples, eval_batch=4, collect=KITTI_PAIRS)
+        torch.cuda.synchronize()
+        plain_launches = {k: v for k, v in launch_counts().items() if v}
+        # the predicted flows themselves: the AEE of a barely trained net is
+        # set by the ground truth and cannot tell the two paths apart
+        flows, want_flows = (np.stack([e["flow"] for e in r["entries"]]) for r in (got, want))
+        rel = relative_l2(flows, want_flows)
+        aee_rel = abs(got["aee"] - want["aee"]) / want["aee"]
+        print(f"real data Evaluator.run {dtype} kitti_2012 375x1242 batch 4: launches {mine} "
+              f"(plain twin: {plain_launches}) flows relative_l2_vs_plain {rel:.3e} (tol "
+              f"{tolerance}); AEE {got['aee']:.5f} vs plain {want['aee']:.5f} (relative "
+              f"{aee_rel:.3e}); Fl {got['fl']:.5f} vs {want['fl']:.5f}; aee_noc "
+              f"{got['aee_noc']:.5f} aee_occ {got['aee_occ']:.5f}; pairs/s "
+              f"{KITTI_PAIRS / wall:.3f} (host clock, incl. PNG decodes)", flush=True)
+        if mine != {kernel: batches} or plain_launches or got["n_gt"] != KITTI_PAIRS:
+            raise AssertionError(f"Evaluator.run {dtype}: launches {mine}, plain twin's "
+                                 f"{plain_launches}")
+        if flows.shape != (KITTI_PAIRS, *FRAME_HW, 2) or not np.isfinite(flows).all():
+            raise AssertionError(f"Evaluator.run {dtype}: bad flows {flows.shape}")
+        if not rel < tolerance:
+            raise AssertionError(f"Evaluator.run {dtype} disagrees with the plain correlation: "
+                                 f"flows relative L2 {rel}")
+        counts[dtype] = mine
+    return counts
+
+
+def run_heldout_short(tmp: Path) -> dict[str, int]:
+    """The held-out acceptance run, cut to 4 steps in 2 segments across the
+    bootstrap boundary, at its geometry; returns its launch counts."""
+    from unflow_tpu_torch.heldout import HELDOUT_BATCHES
+    from unflow_tpu_torch.heldout import main as heldout_main
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+
+    steps = 4
+    reset_launch_counts()
+    t = time.perf_counter()
+    rc = heldout_main(["--hw", "128", "256", "--batch", "8", "--corpus", "64", "--steps",
+                       str(steps), "--segments", "2", "--bootstrap-until", "2", "--eval-every",
+                       "2", "--exp-root", str(tmp / "heldout"), "--out", str(tmp / "heldout.json")])
+    torch.cuda.synchronize()
+    mine = {k: v for k, v in launch_counts().items() if v}
+    summary = json.loads((tmp / "heldout.json").read_text())
+    curve = [c["aee"] for c in summary["affine_off"]["curve"]]
+    expected = {"corr_fwd_bf16": steps + len(curve) * HELDOUT_BATCHES,
+                "corr_bwd_f1_bf16": steps, "corr_bwd_f2_bf16": steps}
+    print(f"held-out short (128x256, batch 8, 64-pair corpus, {steps} steps in 2 segments, "
+          f"bootstrap to step 2): rc {rc} launches {mine} zero-flow AEE "
+          f"{summary['zero_flow_aee']:.4f} curve {curve} {time.perf_counter() - t:.2f} s",
+          flush=True)
+    if rc != 0 or mine != expected or len(curve) != 2 or not np.isfinite(curve).all():
+        raise AssertionError(f"held-out short: launches {mine}, curve {curve}")
+    if f"{summary['zero_flow_aee']:.4f}" != "15.3428":
+        raise AssertionError(f"held-out set: zero-flow AEE {summary['zero_flow_aee']}")
+    shutil.rmtree(tmp / "heldout")
+    return mine
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -897,7 +1139,7 @@ def main() -> int:
         run_train_twin(tmp, "bfloat16", 8, 2e-2)
         run_train_twin(tmp, "float32", 2, 1e-4, control=True)
         run_train_twin(tmp, "bfloat16", 8, 2e-2, corr_stride=4)
-        run_train_timed(tmp)
+        ready_pairs_per_s = run_train_timed(tmp)
         run_train_profiled_f32(tmp)
 
         run_recipe(tmp)
@@ -911,6 +1153,21 @@ def main() -> int:
         run_cudnn_spread(tmp)
         run_train_timed(tmp, CSS_CONFIG, finetune=())
         run_train_timed(tmp, CSS_CONFIG, flownet="CSS", train_all=True, finetune=())
+
+        write_kitti_trees(tmp / "data")
+        paths = {
+            "cli.train kitti_raw, packed, 12 steps, eval every 6": run_real_train(
+                tmp, ready_pairs_per_s),
+        }
+        for dtype, counts in run_real_eval(tmp).items():
+            paths[f"Evaluator.run {dtype} kitti_2012, 8 pairs, batch 4"] = counts
+        paths["heldout, 4 steps, 2 evals of 8 batches"] = run_heldout_short(tmp)
+    # the paths of the real-data phases, beside each kernel's main path
+    for path, counts in paths.items():
+        for name, count in counts.items():
+            report[name].setdefault("other_paths", {})[path] = count
+    report["corr_fwd_bf16"].setdefault("main_path", "cli.infer, one pair")
+    report["corr_fwd_f32"].setdefault("main_path", "Evaluator.predict_batch f32, batch 4")
 
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -242,3 +242,45 @@ def test_orbax_experiment_serves_the_same_flow_through_the_port(tmp_path):
 def test_evaluator_needs_params_or_an_experiment():
     with pytest.raises(ValueError, match="exp_dir"):
         Evaluator(Config(), device="cpu")
+
+
+def test_two_segment_run_on_a_dataset_is_bit_identical(tmp_path):
+    """As above on KITTI raw frames through the threaded ``Loader``: its
+    per-epoch shuffles depend on (seed, epoch) alone and ``start_batch``
+    skips to the resumed step, across an epoch boundary (3 batches an
+    epoch)."""
+    from unflow_tpu_torch.data.io import write_image
+
+    rng = np.random.RandomState(0)
+    for drive in ("2011_09_26_drive_0001_sync", "2011_09_26_drive_0002_sync"):
+        d = tmp_path / "kitti_raw" / drive / "image_02" / "data"
+        d.mkdir(parents=True)
+        for f in range(4):
+            write_image(d / f"{f:010d}.png", rng.rand(70, 72, 3).astype(np.float32))
+    ini = _ini(tmp_path, "kitti", "C")
+    ini.write_text(ini.read_text().replace("dataset = synthetic", "dataset = kitti_raw")
+                   .replace("num_threads = 0", "num_threads = 2")
+                   .replace("[dirs]\n", f"[dirs]\ndata = {tmp_path}\n"))
+    assert _train(ini, "whole", "--set", "num_iters=5") == 0
+
+    cfg = load_config(ini)
+    cfg.train.num_iters = 5
+    prepare_experiment_dir(cfg, "split")
+    ex_dir = cfg.experiment_dir("split")
+    batches, norm = cli_train.build_batches_and_norm(cfg)
+    first = Trainer(cfg, ex_dir, batches, normalization=norm, device="cpu")
+    first.run(max_iters=2)
+    batches.close()
+    assert _train(ini, "split") == 0
+
+    whole = CheckpointManager(cfg.experiment_dir("whole")).load()
+    split = CheckpointManager(ex_dir).load()
+    assert whole["step"] == split["step"] == 5
+    for key, value in whole["model"].items():
+        assert torch.equal(value, split["model"][key]), key
+
+    def losses(ex):
+        lines = (cfg.experiment_dir(ex) / "metrics.jsonl").read_text().splitlines()
+        return {r["step"]: r["loss"] for r in map(json.loads, lines)}
+
+    assert losses("split") == losses("whole") and sorted(losses("whole")) == [1, 2, 3, 4, 5]

@@ -131,6 +131,9 @@ STEP_CASES = {
     "clip_decay": ("C", {"grad_clip_norm": 1.0, "weight_decay": 1e-3}),
     "cS": ("cS", {}),  # frozen FlowNetC under a trainable FlowNetS
     "CSS_train_all": ("CSS", {"train_all": True}),  # every stage's loss, gradients through the warps
+    # the held-out run's bootstrap objective: photometric, no occlusion masking
+    "bootstrap": ("C", {"photo_weight": 1.0, "ternary_weight": 0.0, "occ_weight": 0.0,
+                        "mask_occlusion": ""}),
 }
 
 
@@ -257,7 +260,7 @@ def test_frozen_spec_leaves_nothing_to_train(tmp_path, batch):
     "key,value,item",
     [
         ("supervised", True, "A8"), ("aug_rotate", 5.0, "A13"),
-        ("aug_zoom_max", 1.2, "A13"), ("eval_interval", 10, "A10"), ("tensorboard", True, "A13"),
+        ("aug_zoom_max", 1.2, "A13"), ("tensorboard", True, "A13"),
         ("image_summary_interval", 5, "A13"), ("num_devices", 4, "A13"),
         ("spatial_shards", 2, "A13"),
     ],
@@ -278,7 +281,8 @@ def test_trainer_without_gpu_raises_unless_cpu_is_asked_for(tmp_path, batch):
 def _write_ini(tmp_path):
     path = tmp_path / "tiny.ini"
     lines = [f"{k} = {v}" for k, v in SHARED.items() if k not in ("num_iters", "display_interval")]
-    path.write_text(f"[dirs]\nlog = {tmp_path / 'log'}\n\n[train]\ndataset = synthetic\n"
+    path.write_text(f"[dirs]\ndata = {tmp_path / 'data'}\nlog = {tmp_path / 'log'}\n\n"
+                    "[train]\ndataset = synthetic\n"
                     + "\n".join(lines) + "\ncorr_impl = jnp\nnum_threads = 0\n")
     return path
 
@@ -307,9 +311,14 @@ def test_cli_train_on_cpu_writes_snapshot_and_metrics(tmp_path, capsys):
 
 def test_cli_train_refusals(tmp_path):
     ini = _write_ini(tmp_path)
-    with pytest.raises(NotImplementedError, match="A10"):
+    # a dataset directory that does not exist fails before the snapshot is written
+    with pytest.raises(FileNotFoundError, match="kitti_raw"):
         cli_train.main(["--config", str(ini), "--ex", "k", "--set", "dataset=kitti_raw",
                         "--device", "cpu"])
+    assert not (tmp_path / "log" / "ex" / "k").exists()
+    with pytest.raises(FileNotFoundError):
+        cli_train.main(["--config", str(ini), "--ex", "k", "--set", "dataset=kitti_raw",
+                        "--set", f"packed_dir={tmp_path / 'nowhere'}", "--device", "cpu"])
     assert not (tmp_path / "log" / "ex" / "k").exists()
     with pytest.raises(SystemExit, match="unknown config key"):
         cli_train.main(["--config", str(ini), "--ex", "k", "--set", "nope=1", "--device", "cpu"])
@@ -317,3 +326,172 @@ def test_cli_train_refusals(tmp_path):
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli_train.main(["--config", str(ini), "--ex", "k"])
         assert not (tmp_path / "log" / "ex" / "k").exists()
+
+
+# --- in-training evaluation and training on a dataset --------------------------
+
+
+def _write_kitti(root, rng, raw_frames=(4, 4), pairs_2012=4, hw=(70, 140)):
+    """KITTI raw drives of ``raw_frames`` frames and a KITTI 2012 training tree
+    of ``pairs_2012`` pairs (flow_occ only), all at ``hw`` (cropped to 64x128)."""
+    from unflow_tpu_torch.data.io import write_image, write_kitti_png_flow
+
+    h, w = hw
+    for i, n in enumerate(raw_frames):
+        d = root / "kitti_raw" / f"2011_09_26_drive_{i + 1:04d}_sync" / "image_02" / "data"
+        d.mkdir(parents=True)
+        for f in range(n):
+            write_image(d / f"{f:010d}.png", rng.rand(h, w, 3).astype(np.float32))
+    base = root / "kitti_2012" / "training"
+    for sub in ("colored_0", "flow_occ"):
+        (base / sub).mkdir(parents=True)
+    for i in range(pairs_2012):
+        for suffix in ("10", "11"):
+            write_image(base / "colored_0" / f"{i:06d}_{suffix}.png",
+                        rng.rand(h, w, 3).astype(np.float32))
+        write_kitti_png_flow(base / "flow_occ" / f"{i:06d}_10.png",
+                             (rng.randn(h, w, 2) * 3).astype(np.float32),
+                             (rng.rand(h, w, 1) > 0.2).astype(np.float32))
+
+
+def test_trainer_logs_eval_outside_the_throughput_window(tmp_path, batch, monkeypatch):
+    """``eval_fn`` runs every ``eval_interval`` steps on the model, its values
+    are logged as ``eval/<name>``, and its time leaves the window: on a clock
+    that moves only while the eval runs, the steps take no time."""
+    import unflow_tpu_torch.train.trainer as trainer_module
+
+    clock = [0.0]
+    monkeypatch.setattr(trainer_module.time, "perf_counter", lambda: clock[0])
+    seen = []
+
+    def eval_fn(model):
+        seen.append(model)
+        clock[0] += 100.0
+        return {"aee": 1.5 * len(seen)}
+
+    cfg = _config(Config, tmp_path, corr_impl="torch", eval_interval=2, num_iters=4)
+    trainer = Trainer(cfg, tmp_path / "ex", itertools.repeat(batch), device="cpu",
+                      eval_fn=eval_fn)
+    trainer.run()
+    records = [json.loads(line) for line in open(tmp_path / "ex" / "metrics.jsonl")]
+    evals = [(r["step"], r["eval/aee"]) for r in records if "eval/aee" in r]
+    assert evals == [(2, 1.5), (4, 3.0)] and all(m is trainer.model for m in seen)
+    assert all(r["step_ms"] < 1e-3 for r in records if "step_ms" in r)
+
+
+@pytest.mark.parametrize("dataset", ["synthetic", "kitti_2012", "kitti_raw"])
+def test_build_eval_fn_matches_jax(tmp_path, rng, flax_params, dataset):
+    """The in-training AEE of the port and of the JAX package, from the same
+    parameters. A dataset without ground truth (KITTI raw) is evaluated on
+    KITTI 2012's training pairs, as the UnFlow recipe does; the JAX package
+    evaluates nothing there."""
+    from unflow_tpu.cli.train import build_eval_fn as build_eval_fn_jax
+    from unflow_tpu_torch.data import dataset_normalization
+
+    _write_kitti(tmp_path, rng, raw_frames=(3,), pairs_2012=5)
+    norm = dataset_normalization(dataset) or dataset_normalization("sintel")
+    cfgs = [_config(cls, tmp_path, corr_impl="jnp", eval_interval=1, dataset=dataset)
+            for cls in (ConfigJax, Config)]
+    for c in cfgs:
+        c.dirs.data = str(tmp_path)
+    model_jax, params = flax_params("C")
+    model = build_model(cfgs[1], "cpu")
+    model.load_state_dict(params_from_flax(jax.device_get(params)))
+    got = cli_train.build_eval_fn(cfgs[1], norm, "cpu")(model)
+    assert list(got) == ["aee"] and np.isfinite(got["aee"])
+    if dataset == "kitti_raw":
+        assert build_eval_fn_jax(cfgs[0], norm) is None
+        cfgs[0].train.dataset = "kitti_2012"
+    want = build_eval_fn_jax(cfgs[0], norm)(params)
+    assert got["aee"] == pytest.approx(want["aee"], rel=1e-4)
+
+
+def test_build_eval_fn_without_anything_to_evaluate(tmp_path):
+    cfg = _config(Config, tmp_path, corr_impl="torch", dataset="kitti_2012")
+    cfg.dirs.data = str(tmp_path)
+    assert cli_train.build_eval_fn(cfg, None, "cpu") is None  # eval_interval 0
+    cfg.train.eval_interval = 5
+    assert cli_train.build_eval_fn(cfg, None, "cpu") is None  # no dataset on disk
+    cfg.train.dataset = "synthia"
+    assert cli_train.build_eval_fn(cfg, None, "cpu") is None  # no eval split
+
+
+def _dataset_ini(tmp_path, **extra):
+    lines = [f"{k} = {v}" for k, v in SHARED.items() if k not in ("num_iters", "display_interval")]
+    lines += [f"{k} = {v}" for k, v in extra.items()]
+    path = tmp_path / "kitti.ini"
+    path.write_text(f"[dirs]\ndata = {tmp_path}\nlog = {tmp_path / 'log'}\n\n[train]\n"
+                    "dataset = kitti_raw\ncorr_impl = jnp\nnum_threads = 2\n" + "\n".join(lines)
+                    + "\n")
+    return path
+
+
+def test_cli_train_on_kitti_raw_decoded_and_packed(tmp_path, rng):
+    """Two steps on a KITTI raw tree through the decoding Loader and through
+    the packed directory of ``cli.pack``: the same batches, the same losses,
+    and the held-out AEE on KITTI 2012 logged at each step."""
+    from unflow_tpu_torch.cli.pack import main as pack_main
+
+    _write_kitti(tmp_path, rng)
+    ini = _dataset_ini(tmp_path, eval_interval=1)
+    assert pack_main(["--dataset", "kitti_raw", "--data-dir", str(tmp_path), "--out",
+                      str(tmp_path / "packed"), "--height", str(H), "--width", str(W)]) == 0
+    losses = {}
+    for ex, extra in (("decoded", []), ("packed", ["--set", f"packed_dir={tmp_path / 'packed'}"])):
+        assert cli_train.main(["--config", str(ini), "--ex", ex, "--set", "num_iters=2",
+                               "--set", "display_interval=1", "--device", "cpu", *extra]) == 0
+        lines = (tmp_path / "log" / "ex" / ex / "metrics.jsonl").read_text().splitlines()
+        records = [json.loads(line) for line in lines]
+        losses[ex] = [r["loss"] for r in records if "loss" in r]
+        evals = [r for r in records if "eval/aee" in r]
+        assert [r["step"] for r in evals] == [1, 2] and all(np.isfinite(r["eval/aee"]) for r in evals)
+        assert len(losses[ex]) == 2 and all(np.isfinite(losses[ex]))
+    assert losses["decoded"] == losses["packed"]
+    snapshot = load_config(tmp_path / "log" / "ex" / "packed" / "config.ini")
+    assert snapshot.train.packed_dir == str(tmp_path / "packed")
+
+
+def test_smoke_config_trains_with_its_eval_interval(tmp_path, monkeypatch):
+    """``configs/smoke.ini`` (FlowNetS, ``eval_interval = 10``) through
+    ``cli.train``, its ``dirs`` under ``tmp_path``: the eval at step 10 is
+    logged."""
+    shutil.copy(Path(__file__).resolve().parent.parent / "configs" / "smoke.ini", tmp_path)
+    monkeypatch.chdir(tmp_path)  # dirs: data = data, log = log
+    assert cli_train.main(["--config", "smoke.ini", "--ex", "smoke", "--set", "num_iters=10",
+                           "--set", "num_threads=2", "--device", "cpu"]) == 0
+    records = [json.loads(line) for line in open("log/ex/smoke/metrics.jsonl")]
+    assert [r["step"] for r in records if "loss" in r] == [5, 10]
+    (aee,) = [r["eval/aee"] for r in records if "eval/aee" in r]
+    assert np.isfinite(aee) and all(np.isfinite(r["loss"]) for r in records if "loss" in r)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_several_steps_follow_jax(tmp_path, flax_params, dtype):
+    """Six steps of the held-out run's bootstrap objective from one init on
+    the same uint8 batches, augmentation off, each step's loss against the
+    JAX package's. float32 follows within 2e-5 for five steps (it reads
+    3e-6). At the sixth it parts by 2.8e-3 (limit 5e-3): at 64x128 the
+    scale-3 level is 2x4 pixels, all on the frame's edge, where the sign of
+    a near-zero flow decides the outgoing mask, so one rounding flips a
+    pixel of it. bfloat16 stays within 1e-2 (it reads 6.1e-3): Adam moves an
+    element by up to lr whatever the size of its gradient, so the towers'
+    rounding in the near-zero gradients grows from step to step."""
+    rtols = [2e-5] * 5 + [5e-3] if dtype == "float32" else [1e-2] * 6
+    from unflow_tpu_torch.data.synthetic import corpus_iterator
+
+    overrides = dict(photo_weight=1.0, ternary_weight=0.0, occ_weight=0.0, mask_occlusion="",
+                     compute_dtype=dtype, num_iters=6)
+    model_jax, params = flax_params("C")
+    cfg_jax = _config(ConfigJax, tmp_path, corr_impl="jnp", **overrides)
+    tx = build_optimizer_jax(cfg_jax, params)
+    state = TrainStateJax(jnp.zeros((), jnp.int32), params, tx.init(params))
+    step_jax = jax.jit(make_train_step_jax(model_jax, tx, cfg_jax))
+    stream = corpus_iterator(BATCH, H, W, n_pairs=12, seed=0, max_shift=16.0, dtype="uint8")
+    batches = [next(stream) for _ in range(6)]
+    trainer = Trainer(_config(Config, tmp_path, corr_impl="torch", **overrides), tmp_path / "ex",
+                      iter(batches), device="cpu", params=params_from_flax(jax.device_get(params)))
+    for i, b in enumerate(batches):
+        state, want = step_jax(state, {k: jnp.asarray(v) for k, v in b.items()},
+                               jax.random.PRNGKey(i))
+        got = trainer.train_step(b)
+        assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=rtols[i]), i

@@ -1,29 +1,67 @@
-"""Per-dataset input normalization.
+"""Datasets, the threaded loader and the per-dataset input normalization.
 
-A copy of the constants of ``unflow_tpu/data`` (``base.py::PairDataset``,
-``kitti.py::KITTI_MEAN``/``KITTI_STDDEV`` and the ``DATASETS`` registry):
-mean of the 0..255 RGB channels and one stddev. Of the data sources only the
-synthetic stream (``data/synthetic.py``) is here; the dataset loaders are not
-ported yet.
+A copy of ``unflow_tpu/data/__init__.py``: the dataset registry, its loaders
+(numpy and threads only) and ``get_dataset``. A dataset's normalization,
+the mean of its 0..255 RGB channels and one stddev, is a class attribute.
+The synthetic pairs come from ``data/synthetic.py``; packed input from
+``data/packed.py``.
 """
 
-from __future__ import annotations
+from unflow_tpu_torch.data.base import Example, Loader, PairDataset, fit_to_shape, load_example
+from unflow_tpu_torch.data.chairs import FlyingChairs
+from unflow_tpu_torch.data.kitti import KITTI2012, KITTI2015, KITTIRaw
+from unflow_tpu_torch.data.middlebury import Middlebury
+from unflow_tpu_torch.data.sintel import Sintel, SintelFinal
+from unflow_tpu_torch.data.synthia import Synthia
 
-DEFAULT_NORMALIZATION = ((104.92, 110.18, 114.47), 60.0)
-KITTI_NORMALIZATION = ((96.81, 98.83, 94.48), 60.0)
+DEFAULT_NORMALIZATION = PairDataset.normalization
+KITTI_NORMALIZATION = KITTIRaw.normalization
 
-NORMALIZATION = {
-    "kitti_raw": KITTI_NORMALIZATION,
-    "kitti_2012": KITTI_NORMALIZATION,
-    "kitti_2015": KITTI_NORMALIZATION,
-    "sintel": DEFAULT_NORMALIZATION,
-    "sintel_final": DEFAULT_NORMALIZATION,
-    "synthia": DEFAULT_NORMALIZATION,
-    "chairs": DEFAULT_NORMALIZATION,
-    "middlebury": DEFAULT_NORMALIZATION,
+DATASETS = {
+    "kitti_raw": KITTIRaw,
+    "kitti_2012": KITTI2012,
+    "kitti_2015": KITTI2015,
+    "sintel": Sintel,
+    "sintel_final": SintelFinal,
+    "synthia": Synthia,
+    "chairs": FlyingChairs,
+    "middlebury": Middlebury,
 }
 
 
 def dataset_normalization(name: str):
-    """(mean, stddev) of a dataset; None for synthetic or unknown names."""
-    return NORMALIZATION.get(name)
+    """(mean, stddev) of a dataset without touching the filesystem; None for
+    synthetic or unknown names."""
+    return getattr(DATASETS.get(name), "normalization", None)
+
+
+def get_dataset(name: str, data_dir: str, **kwargs) -> PairDataset:
+    if name == "synthetic":
+        raise ValueError(
+            "synthetic batches come from unflow_tpu_torch.data.synthetic.batch_iterator"
+        )
+    if name not in DATASETS:
+        raise KeyError(f"unknown dataset {name!r}; have {sorted(DATASETS)}")
+    return DATASETS[name](data_dir, **kwargs)
+
+
+__all__ = [
+    "DATASETS",
+    "DEFAULT_NORMALIZATION",
+    "KITTI_NORMALIZATION",
+    "Example",
+    "FlyingChairs",
+    "KITTI2012",
+    "KITTI2015",
+    "KITTIRaw",
+    "Loader",
+    "Middlebury",
+    "PairDataset",
+    "Sintel",
+    "SintelFinal",
+    "Synthia",
+    "dataset_normalization",
+    "fit_to_shape",
+    "get_dataset",
+    "load_example",
+]

@@ -27,6 +27,14 @@ def read_image(path: str | Path) -> np.ndarray:
         return np.asarray(img.convert("RGB"), np.float32) / 255.0
 
 
+def read_image_u8(path: str | Path) -> np.ndarray:
+    """Decode an image to uint8 RGB (H, W, 3), without the float conversion:
+    the train step converts ``u8 / 255`` (exact in float32) on the device,
+    at a quarter of the bytes copied there."""
+    with Image.open(str(path)) as img:
+        return np.asarray(img.convert("RGB"))
+
+
 def write_image(path: str | Path, im: np.ndarray) -> None:
     arr = np.clip(im * 255.0 + 0.5, 0, 255).astype(np.uint8)
     Image.fromarray(arr).save(str(path))
@@ -81,3 +89,15 @@ def write_kitti_png_flow(
     out[..., :2] = quant.astype(np.uint16)
     out[..., 2] = (valid[..., 0] > 0).astype(np.uint16)
     write_png16(path, out)
+
+
+def pad_to_multiple(im: np.ndarray, multiple: int = 64) -> tuple[np.ndarray, tuple]:
+    """Zero-pad H and W up to a multiple (FlowNet needs /64); returns
+    (padded, (orig_h, orig_w)) for cropping back."""
+    h, w = im.shape[:2]
+    ph = -h % multiple
+    pw = -w % multiple
+    if ph == 0 and pw == 0:
+        return im, (h, w)
+    pad = [(0, ph), (0, pw)] + [(0, 0)] * (im.ndim - 2)
+    return np.pad(im, pad), (h, w)

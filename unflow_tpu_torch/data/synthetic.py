@@ -1,8 +1,9 @@
 """Synthetic moving-texture pairs (training smoke runs, tests, benches).
 
-A copy of ``unflow_tpu/data/synthetic.py`` (``make_pair``, the batch stream
-``batch_iterator`` and what they call; numpy only). The fixed-corpus functions
-(``make_corpus``, ``corpus_iterator``) are not copied yet.
+A copy of ``unflow_tpu/data/synthetic.py`` (numpy only): ``make_pair``, the
+infinite batch stream ``batch_iterator``, and the fixed corpus ``make_corpus``
+(cached as ``.npy``) with its epoch iterator ``corpus_iterator``, which the
+held-out acceptance run (``unflow_tpu_torch.heldout``) trains on.
 
 * **Texture**: multi-octave smooth noise (bilinearly interpolated random
   grids at dyadic scales, amplitudes decaying with frequency), so the image
@@ -176,6 +177,118 @@ def _make_batch(index, batch_size, height, width, seed, supervised, max_shift,
         batch["flow"] = np.stack(flows)
         batch["mask"] = np.ones((batch_size, height, width, 1), np.float32)
     return batch
+
+
+def make_corpus(
+    n_pairs: int,
+    height: int,
+    width: int,
+    seed: int = 0,
+    max_shift: float = 8.0,
+    mode: str = "affine",
+    cache_dir: str | None = None,
+    dtype: str = "float32",
+):
+    """Generate (or load from cache) a FIXED corpus of ``n_pairs`` pairs.
+
+    Pair ``i`` is a pure function of (seed, i) (same keying scheme as the
+    stream's batches, but per-pair), so the corpus is reproducible across
+    processes. With ``cache_dir`` the arrays are persisted as ``.npy``
+    (a ``DONE`` marker is written last) and memory-mapped on reload, so a
+    resumed segment pays the file opens, not the regeneration.
+
+    dtype="uint8" stores frames quantized to 8 bits (flow stays f32);
+    the train step converts back with f32/255 on the device. This matches
+    real corpora (KITTI PNGs are 8-bit) and quarters the host->device
+    copy.
+
+    Returns dict of arrays: im1/im2 (n, h, w, 3), flow (n, h, w, 2) f32.
+    """
+    if dtype not in ("float32", "uint8"):
+        raise ValueError(f"unsupported corpus dtype {dtype!r}")
+    names = ("im1", "im2", "flow")
+    if cache_dir is not None:
+        import os
+
+        tag = (f"synth_{mode}_{height}x{width}_n{n_pairs}_s{seed}"
+               f"_ms{max_shift:g}_{dtype}")
+        d = os.path.join(cache_dir, tag)
+        done = os.path.join(d, "DONE")
+        if os.path.exists(done):
+            return {k: np.load(os.path.join(d, f"{k}.npy"), mmap_mode="r")
+                    for k in names}
+        os.makedirs(d, exist_ok=True)
+
+    im_dt = np.uint8 if dtype == "uint8" else np.float32
+    im1 = np.empty((n_pairs, height, width, 3), im_dt)
+    im2 = np.empty((n_pairs, height, width, 3), im_dt)
+    flow = np.empty((n_pairs, height, width, 2), np.float32)
+    for i in range(n_pairs):
+        rng = np.random.RandomState((seed * 1_000_003 + i) % (2**32))
+        a, b, f = make_pair(rng, height, width, max_shift, mode=mode)
+        if dtype == "uint8":
+            a = np.round(a * 255.0).astype(np.uint8)
+            b = np.round(b * 255.0).astype(np.uint8)
+        im1[i], im2[i], flow[i] = a, b, f
+    corpus = {"im1": im1, "im2": im2, "flow": flow}
+    if cache_dir is not None:
+        for k in names:
+            np.save(os.path.join(d, f"{k}.npy"), corpus[k])
+        with open(done, "w") as f:
+            f.write("ok\n")
+    return corpus
+
+
+def corpus_iterator(
+    batch_size: int,
+    height: int,
+    width: int,
+    n_pairs: int,
+    seed: int = 0,
+    supervised: bool = False,
+    max_shift: float = 8.0,
+    start_batch: int = 0,
+    mode: str = "affine",
+    cache_dir: str | None = None,
+    dtype: str = "float32",
+):
+    """Epoch iterator over a fixed ``n_pairs`` corpus (vs the infinite
+    fresh-pair stream of :func:`batch_iterator`).
+
+    This is the analog of the reference's training regime — a finite
+    KITTI-raw corpus cycled for many epochs — and it decouples training
+    throughput from the host renderer: pairs are generated once (then
+    disk-cached), so steady-state feeding is a memmap gather.
+
+    Deterministic + step-indexed: batch ``i`` draws indices from a
+    per-epoch permutation keyed on (seed, epoch), so resume at
+    ``start_batch`` reproduces the uninterrupted stream exactly.
+    Requires ``n_pairs % batch_size == 0`` to keep epoch boundaries
+    aligned with batches.
+    """
+    if n_pairs % batch_size:
+        raise ValueError(f"n_pairs={n_pairs} not divisible by "
+                         f"batch_size={batch_size}")
+    corpus = make_corpus(n_pairs, height, width, seed, max_shift, mode,
+                         cache_dir=cache_dir, dtype=dtype)
+    per_epoch = n_pairs // batch_size
+    mask = np.ones((batch_size, height, width, 1), np.float32)
+    index = start_batch
+    perm_epoch, perm = -1, None
+    while True:
+        epoch, offset = divmod(index, per_epoch)
+        if epoch != perm_epoch:
+            perm = np.random.RandomState(
+                (seed * 7_919 + epoch) % (2**32)).permutation(n_pairs)
+            perm_epoch = epoch
+        idx = perm[offset * batch_size:(offset + 1) * batch_size]
+        batch = {"im1": np.ascontiguousarray(corpus["im1"][idx]),
+                 "im2": np.ascontiguousarray(corpus["im2"][idx])}
+        if supervised:
+            batch["flow"] = np.ascontiguousarray(corpus["flow"][idx])
+            batch["mask"] = mask
+        yield batch
+        index += 1
 
 
 def batch_iterator(

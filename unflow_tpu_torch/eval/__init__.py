@@ -1,1 +1,1 @@
-"""Inference and flow visualization of the port."""
+"""Inference, evaluation metrics and flow visualization of the port."""

@@ -9,11 +9,11 @@ piecewise-halved learning rate. PyTorch runs eagerly, so the step is a plain
 function that updates the model and the optimizer of its :class:`TrainState`
 in place; there is no jit and no mesh. The :class:`Trainer` initializes the
 stages of a fresh experiment from the ``finetune`` experiments, resumes an
-experiment from its latest checkpoint and saves every ``save_interval``
-steps (``train/checkpoint.py``). Not ported yet, each raising or saying so
-when asked for: ``supervised`` (ROADMAP A8), in-training evaluation (A10),
-the affine augmentation, image summaries, tensorboard and several devices
-(A13).
+experiment from its latest checkpoint, saves every ``save_interval``
+steps (``train/checkpoint.py``) and, given an ``eval_fn``, evaluates every
+``eval_interval`` steps. Not ported yet, each raising or saying so when
+asked for: ``supervised`` (ROADMAP A8), the affine augmentation, image
+summaries, tensorboard and several devices (A13).
 """
 
 from __future__ import annotations
@@ -79,8 +79,6 @@ def _check_ported(cfg: Config) -> None:
         raise NotImplementedError("supervised training is not ported yet: ROADMAP item A8")
     if any(getattr(t, key) != default for key, default in _AFFINE_DEFAULTS.items()):
         raise NotImplementedError("the affine augmentation is not ported yet: ROADMAP item A13")
-    if t.eval_interval:
-        raise NotImplementedError("in-training evaluation is not ported yet: ROADMAP item A10")
     if t.tensorboard or t.image_summary_interval > 0:
         raise NotImplementedError(
             "image summaries and tensorboard are not ported yet: ROADMAP item A13"
@@ -207,6 +205,9 @@ class Trainer:
       finetune_dirs: experiment directories whose checkpoints initialize the
         stages of a fresh start (:func:`init_stages_from`); by default those
         of ``cfg.train.finetune``, named under ``<log>/ex/``.
+      eval_fn: ``eval_fn(model) -> {name: value}``, called every
+        ``eval_interval`` steps (for example ``cli.train.build_eval_fn``);
+        its values are logged as ``eval/<name>``.
     """
 
     def __init__(
@@ -218,6 +219,7 @@ class Trainer:
         device: torch.device | str | None = None,
         params: dict[str, torch.Tensor] | None = None,
         finetune_dirs: Iterable[str | Path] = (),
+        eval_fn: Callable[[FlowNetStack], dict] | None = None,
     ):
         t = cfg.train
         self.cfg = cfg
@@ -250,6 +252,7 @@ class Trainer:
         if latest is not None:
             self.state.step = self.ckpt.restore(model, self.state.optimizer)
         self.logger = MetricsLogger(self.exp_dir)
+        self.eval_fn = eval_fn
         if t.image_summary_interval == 0:
             print("image summaries are not ported yet (ROADMAP item A13): none are written")
 
@@ -273,6 +276,13 @@ class Trainer:
         the step's logs as 0-d tensors, without waiting for the device."""
         return self._step_fn(self.state, self.put_batch(batch))
 
+    def _sync(self) -> None:
+        """Wait for the queued steps before a pause of the throughput
+        window, so that they stay in the window and only the pause leaves
+        it."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def save(self) -> None:
         """Checkpoint the model, the optimizer and the step."""
         self.ckpt.save(self.state.step, self.state.model, self.state.optimizer)
@@ -287,8 +297,8 @@ class Trainer:
         device between display intervals, so steps queue up on the device.
         At each display interval the logs are read (which waits for the
         device) and written to ``metrics.jsonl`` with ``pairs_per_sec`` and
-        ``step_ms`` of the window since the last one; the time of the saves
-        in the window is left out.
+        ``step_ms`` of the window since the last one; the time of the
+        evaluations and the saves in the window is left out.
         """
         t = self.cfg.train
         target = min(max_iters or t.num_iters, t.num_iters)
@@ -308,10 +318,14 @@ class Trainer:
                 self.logger.log(self.state.step, record)
                 # the window restarts after the write, which leaves that pause out
                 pairs_accum, t_last, pause_s = 0, time.perf_counter(), 0.0
+            if self.eval_fn is not None and t.eval_interval and self.state.step % t.eval_interval == 0:
+                self._sync()
+                t0 = time.perf_counter()
+                metrics = self.eval_fn(self.state.model)
+                self.logger.log(self.state.step, {f"eval/{k}": v for k, v in metrics.items()})
+                pause_s += time.perf_counter() - t0
             if self.state.step % t.save_interval == 0 or self.state.step >= target:
-                if self.device.type == "cuda":
-                    # the steps still queued stay in the window: only the save leaves it
-                    torch.cuda.synchronize(self.device)
+                self._sync()
                 t0 = time.perf_counter()
                 self.save()
                 pause_s += time.perf_counter() - t0
