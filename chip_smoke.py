@@ -109,6 +109,36 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 ``--bootstrap-until 2``: the zero-flow AEE is 15.3428, the curve
                 finite, and the three tensor-core kernels launch (the forward
                 also for each held-out batch).
+ 13. supervised -- a FlyingChairs tree (16 pairs of the synthetic renderer at
+                384x512, max_shift 32, PPM and ``.flo``) is written and packed
+                with its ground truth; configs/chairs_supervised.ini as shipped
+                (FlowNetS, 384x512, batch 8, bf16) through ``cli.train`` on the
+                packed and the decoding Loader (6 steps, no correlation
+                launched), then the packed run as FlowNetC (``--set
+                flownet=C``, 2 steps, the three tensor-core kernels once a
+                step, the forward twice more for each image summary, which
+                the config as shipped writes every ``display_interval``);
+                the loss on one repeated batch must fall. Then the
+                supervised FlowNetC step against its plain-correlation twin:
+                bf16 with dense and with sparse (KITTI-like) ground truth
+                (2e-2), f32 with sparse ground truth (1e-4, TF32 off, with the
+                plain-vs-plain control).
+ 14. disocc -- one bf16 FlowNetC step with ``mask_occlusion=disocc`` against
+                its plain-correlation twin (2e-2); then the forward splat's
+                run-to-run spread (float atomics): two density maps of one flow
+                (ground truth at 320x1152 and an init net's finest flows), the
+                share of their pixels and of the ``disocc`` mask's that differ.
+ 15. affine -- a SYNTHIA sequence (10 frames at 760x1280) is written;
+                configs/synthia_pretrain_c_affine.ini as shipped (FlowNetC,
+                512x768, batch 8, bf16, the affine augmentation) through
+                ``cli.train`` for 6 steps (the three kernels once a step, and
+                the summaries' forward launches); then
+                the held-out run's ``affine_on`` arm cut as in phase 12.
+ 16. summaries -- ``cli.train`` (configs/kitti_unsup_c.ini, synthetic) with
+                ``tensorboard`` and an image summary every 2 of 4 steps; the
+                event file is read back with ``read_events`` (the scalars of
+                steps 2 and 4, 7 images at each); then ``Trainer.run`` on ready
+                host batches with and without summaries: step_ms and wall time.
 
 Prints the GPU's name and power limit first, then a line per check, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -158,6 +188,11 @@ SIMT_CASE = "stride4"
 TRAIN_STEPS = 12
 RECIPE_STEPS = 2
 TENSOR_CORE_KERNELS = ("corr_fwd_bf16", "corr_bwd_f1_bf16", "corr_bwd_f2_bf16")
+CHAIRS_CONFIG = ROOT / "configs" / "chairs_supervised.ini"
+AFFINE_CONFIG = ROOT / "configs" / "synthia_pretrain_c_affine.ini"
+CHAIRS_PAIRS = 16
+SUPERVISED_STEPS = 6
+SYNTHIA_FRAMES = 10
 # the real-data phases' trees, at KITTI's geometry
 KITTI_RAW_DRIVES = ("2011_09_26_drive_0001_sync", "2011_09_26_drive_0002_sync")
 RAW_FRAMES = 9
@@ -524,14 +559,16 @@ def run_eval(dtype: str, kernel: str, tolerance: float,
 def train_config(tmp: Path, config: Path = CONFIG, dataset: str = "synthetic", **overrides):
     """``config`` with ``dataset`` (synthetic unless given), its data and log
     directories under ``tmp`` and ``overrides`` applied; also written to
-    ``tmp/<config's name>`` for the CLI."""
+    ``tmp/<config's name>`` for the CLI. Image summaries are off unless
+    ``image_summary_interval`` is given: a summary's two forward applies
+    launch the forward kernel twice more."""
     from unflow_tpu_torch.config import load_config, save_config
 
     cfg = load_config(config)
     cfg.dirs.data = str(tmp / "data")
     cfg.dirs.log = str(tmp / "log")
     cfg.train.dataset = dataset
-    for key, value in overrides.items():
+    for key, value in {"image_summary_interval": -1, **overrides}.items():
         setattr(cfg.train, key, value)
     save_config(cfg, tmp / config.name)
     return cfg
@@ -582,19 +619,26 @@ def run_train_cli(tmp: Path, dtype: str, steps: int, batch: int,
     return mine
 
 
-def host_batches(batch: int, count: int):
-    """``count`` synthetic 320x1152 batches, rendered up front."""
+def host_batches(batch: int, count: int, supervised: str = ""):
+    """``count`` synthetic 320x1152 batches, rendered up front; with
+    ``supervised`` (``dense`` or ``sparse``) with their flow and a mask, all
+    ones or KITTI-like (about a third valid, none in the top quarter)."""
     from unflow_tpu_torch.data.synthetic import batch_iterator
 
-    stream = batch_iterator(batch, 320, 1152, seed=3, num_threads=4)
+    stream = batch_iterator(batch, 320, 1152, seed=3, num_threads=4, supervised=bool(supervised))
     batches = [next(stream) for _ in range(count)]
     stream.close()
+    if supervised == "sparse":
+        rng = np.random.RandomState(12)
+        for b in batches:
+            b["mask"] = (rng.rand(*b["mask"].shape) < 0.35).astype(np.float32)
+            b["mask"][:, :80] = 0.0
     return batches
 
 
 def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
                    corr_stride: int = 2, config: Path = CONFIG, seed: int = 5,
-                   control: bool = False, **overrides) -> None:
+                   control: bool = False, supervised: str = "", **overrides) -> dict[str, int]:
     """One train step through the kernels against the same step through the
     plain correlation: same parameters (from ``seed``), batch and step seed,
     cuDNN held to its deterministic algorithms (so that the two steps differ
@@ -603,7 +647,9 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
     per stage and for its largest leaves; with ``control`` the plain step
     runs twice, and the gap between those two (what is left of the card's
     run-to-run spread: the float atomics of the gathers' and the resizes'
-    gradients) is printed beside it."""
+    gradients) is printed beside it. ``supervised`` (``dense`` or ``sparse``)
+    takes a supervised step on a batch with ground truth of that kind.
+    Returns the launches of the step through the kernels."""
     from unflow_tpu_torch.models import DTYPES, build_model, init_params
     from unflow_tpu_torch.ops.cuda.correlation import (
         kernel_name,
@@ -612,7 +658,9 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
     )
     from unflow_tpu_torch.train import Trainer
 
-    batches = host_batches(batch, 1)
+    batches = host_batches(batch, 1, supervised)
+    if supervised:
+        overrides["supervised"] = True
     results, launched = {}, {}
     params = None
     for impl in ("cuda", "torch", "torch_again") if control else ("cuda", "torch"):
@@ -623,8 +671,9 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
             model = build_model(cfg, "cpu")
             init_params(model, torch.Generator().manual_seed(seed))
             params = model.state_dict()
-        trainer = Trainer(cfg, tmp / f"twin_{cfg.train.flownet}_{dtype}_s{corr_stride}_{impl}",
-                          [], device="cuda", params=params)
+        trainer = Trainer(cfg, tmp / f"twin_{cfg.train.flownet}_{dtype}_s{corr_stride}_{impl}"
+                          f"{supervised}{cfg.train.mask_occlusion}", [], device="cuda",
+                          params=params)
         reset_launch_counts()
         with deterministic_cudnn():
             logs = {k: float(v) for k, v in trainer.train_step(batches[0]).items()}
@@ -656,7 +705,9 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
         return rel, per_stage, top
 
     what = (f"{cfg.train.flownet}{' train_all' if cfg.train.train_all else ''} {dtype}"
-            f"{f' init seed {seed}' if seed != 5 else ''}")
+            f"{f' init seed {seed}' if seed != 5 else ''}"
+            f"{f' supervised ({supervised} ground truth)' if supervised else ''}"
+            f"{' mask_occlusion=disocc' if cfg.train.mask_occlusion == 'disocc' else ''}")
     rel, per_stage, top = gaps("cuda", "torch")
     (loss_a, norm_a, _), (loss_b, norm_b, _) = results["cuda"], results["torch"]
     print(f"train step vs plain twin {what} batch {batch} corr_stride {corr_stride}: "
@@ -679,6 +730,7 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
     want = {"cuda": expected, "torch": {}, **({"torch_again": {}} if control else {})}
     if launched != want:
         raise AssertionError(f"train step {what} did not launch {expected}: {launched}")
+    return launched["cuda"]
 
 
 def run_cudnn_spread(tmp: Path, seed: int = 7) -> None:
@@ -1060,9 +1112,10 @@ def run_real_eval(tmp: Path) -> dict[str, int]:
     return counts
 
 
-def run_heldout_short(tmp: Path) -> dict[str, int]:
-    """The held-out acceptance run, cut to 4 steps in 2 segments across the
-    bootstrap boundary, at its geometry; returns its launch counts."""
+def run_heldout_short(tmp: Path, arm: str = "off") -> dict[str, int]:
+    """The held-out acceptance run's arm ``arm`` (``off`` or ``on``, the
+    affine augmentation), cut to 4 steps in 2 segments across the bootstrap
+    boundary, at its geometry; returns its launch counts."""
     from unflow_tpu_torch.heldout import HELDOUT_BATCHES
     from unflow_tpu_torch.heldout import main as heldout_main
     from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
@@ -1072,14 +1125,15 @@ def run_heldout_short(tmp: Path) -> dict[str, int]:
     t = time.perf_counter()
     rc = heldout_main(["--hw", "128", "256", "--batch", "8", "--corpus", "64", "--steps",
                        str(steps), "--segments", "2", "--bootstrap-until", "2", "--eval-every",
-                       "2", "--exp-root", str(tmp / "heldout"), "--out", str(tmp / "heldout.json")])
+                       "2", "--arms", arm, "--exp-root", str(tmp / "heldout"),
+                       "--out", str(tmp / "heldout.json")])
     torch.cuda.synchronize()
     mine = {k: v for k, v in launch_counts().items() if v}
     summary = json.loads((tmp / "heldout.json").read_text())
-    curve = [c["aee"] for c in summary["affine_off"]["curve"]]
+    curve = [c["aee"] for c in summary[f"affine_{arm}"]["curve"]]
     expected = {"corr_fwd_bf16": steps + len(curve) * HELDOUT_BATCHES,
                 "corr_bwd_f1_bf16": steps, "corr_bwd_f2_bf16": steps}
-    print(f"held-out short (128x256, batch 8, 64-pair corpus, {steps} steps in 2 segments, "
+    print(f"held-out short, arm {arm} (128x256, batch 8, 64-pair corpus, {steps} steps in 2 segments, "
           f"bootstrap to step 2): rc {rc} launches {mine} zero-flow AEE "
           f"{summary['zero_flow_aee']:.4f} curve {curve} {time.perf_counter() - t:.2f} s",
           flush=True)
@@ -1089,6 +1143,228 @@ def run_heldout_short(tmp: Path) -> dict[str, int]:
         raise AssertionError(f"held-out set: zero-flow AEE {summary['zero_flow_aee']}")
     shutil.rmtree(tmp / "heldout")
     return mine
+
+
+def write_chairs_tree(data: Path) -> None:
+    """Under ``data``: a FlyingChairs tree of ``CHAIRS_PAIRS`` pairs at 384x512
+    (``*_img1.ppm``, ``*_img2.ppm``, ``*_flow.flo``) from the synthetic
+    renderer, max_shift 32."""
+    from unflow_tpu_torch.data.io import write_flo, write_image
+    from unflow_tpu_torch.data.synthetic import make_pair
+
+    root = data / "chairs" / "data"
+    root.mkdir(parents=True)
+    rng = np.random.RandomState(13)
+    for i in range(1, CHAIRS_PAIRS + 1):
+        im1, im2, flow = make_pair(rng, 384, 512, max_shift=32.0)
+        write_image(root / f"{i:05d}_img1.ppm", im1)
+        write_image(root / f"{i:05d}_img2.ppm", im2)
+        write_flo(root / f"{i:05d}_flow.flo", flow)
+
+
+def write_synthia_tree(data: Path) -> None:
+    """Under ``data``: one SYNTHIA sequence of ``SYNTHIA_FRAMES`` frames at
+    760x1280 (a smooth texture moving 4 px right and 2 px down a frame)."""
+    from unflow_tpu_torch.data.io import write_image
+
+    h, w = 760, 1280
+    frames = data / "synthia" / "SEQ_01" / "RGB" / "Stereo_Left" / "Omni_F"
+    frames.mkdir(parents=True)
+    gen = torch.Generator().manual_seed(14)
+    coarse = torch.rand(1, 3, (h + 2 * SYNTHIA_FRAMES) // 8 + 2,
+                        (w + 4 * SYNTHIA_FRAMES) // 8 + 2, generator=gen)
+    tex = torch.nn.functional.interpolate(coarse, scale_factor=8, mode="bilinear")
+    tex = tex[0].permute(1, 2, 0).numpy()
+    for f in range(SYNTHIA_FRAMES):
+        write_image(frames / f"{f:06d}.png", tex[2 * f : 2 * f + h, 4 * f : 4 * f + w])
+
+
+def run_cli_train(tmp: Path, config: Path, ex: str, steps: int, extra=(), **overrides):
+    """``cli.train --config <config> --ex <ex>`` in-process with ``overrides``
+    on ``tmp``'s data: (launch counts, step records, wall seconds, the
+    launches a FlowNetC run must make: the three tensor-core kernels once a
+    step, the forward twice more for each image summary)."""
+    from unflow_tpu_torch.cli.train import main as train_main
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+
+    cfg = train_config(tmp, config, num_iters=steps, **overrides)
+    t = cfg.train
+    interval = t.display_interval if t.image_summary_interval == 0 else t.image_summary_interval
+    summaries = steps // interval if interval > 0 else 0
+    reset_launch_counts()
+    t = time.perf_counter()
+    rc = train_main(["--config", str(tmp / config.name), "--ex", ex, *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    mine = {k: v for k, v in launch_counts().items() if v}
+    records = [json.loads(line) for line in
+               (cfg.experiment_dir(ex) / "metrics.jsonl").read_text().splitlines()]
+    steps_logged = [r for r in records if "loss" in r]
+    if rc != 0 or steps_logged[-1]["step"] != steps or not np.isfinite(
+            [r["loss"] for r in steps_logged]).all():
+        raise AssertionError(f"cli.train {config.name} --ex {ex}: rc {rc}, records {records}")
+    expected = {k: steps for k in TENSOR_CORE_KERNELS}
+    expected["corr_fwd_bf16"] += 2 * summaries
+    return mine, steps_logged, wall, expected
+
+
+def run_supervised(tmp: Path) -> dict[str, dict[str, int]]:
+    """configs/chairs_supervised.ini as shipped (FlowNetS, 384x512, batch 8,
+    bf16) through ``cli.train`` on a FlyingChairs tree, through the packed
+    and the decoding Loader; the same packed run as FlowNetC; the loss on one
+    repeated batch. Returns the launch counts of the runs by path."""
+    from unflow_tpu_torch.cli.pack import main as pack_main
+    from unflow_tpu_torch.data.packed import PackedExamples
+    from unflow_tpu_torch.train import Trainer
+
+    write_chairs_tree(tmp / "data")
+    t = time.perf_counter()
+    rc = pack_main(["--dataset", "chairs", "--data-dir", str(tmp / "data"), "--out",
+                    str(tmp / "packed_chairs"), "--height", "384", "--width", "512",
+                    "--supervised"])
+    print(f"supervised cli.pack chairs --supervised at 384x512: rc {rc} "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    if rc != 0:
+        raise AssertionError("cli.pack chairs failed")
+    packed = ["--set", f"packed_dir={tmp / 'packed_chairs'}"]
+    paths = {}
+    runs = (("chairs_s", "packed", packed, "S"), ("chairs_s_decoded", "decoding", [], "S"),
+            ("chairs_c", "packed", packed + ["--set", "flownet=C"], "C"))
+    for ex, loader, extra, flownet in runs:
+        steps = SUPERVISED_STEPS if flownet == "S" else 2
+        # as shipped: an image summary every display_interval
+        mine, records, wall, expected = run_cli_train(
+            tmp, CHAIRS_CONFIG, ex, steps, extra, dataset="chairs",
+            display_interval=min(3, steps), image_summary_interval=0)
+        last = records[-1]
+        if flownet == "S":
+            expected = {}
+        what = " --set flownet=C" if flownet == "C" else ""
+        print(f"supervised cli.train configs/chairs_supervised.ini{what} "
+              f"({loader} Loader) bf16 384x512 batch 8: steps {last['step']} launches {mine} "
+              f"loss {[round(r['loss'], 4) for r in records]} epe scale0 "
+              f"{last['epe_charbonnier/scale0']:.5g} pairs/s {last['pairs_per_sec']:.3f} "
+              f"step_ms {last['step_ms']:.3f} (the last window) {wall:.2f} s", flush=True)
+        if mine != expected or "epe_charbonnier/scale4" not in last:
+            raise AssertionError(f"supervised cli.train {ex}: launches {mine}")
+        if loader == "packed":
+            path = f"cli.train chairs_supervised.ini flownet={flownet}, packed, {steps} steps"
+            paths[path] = mine
+    # one repeated batch of the packed tree: the loss must fall
+    cfg = train_config(tmp, CHAIRS_CONFIG, dataset="chairs", num_iters=12)
+    batch = PackedExamples(tmp / "packed_chairs").gather(np.arange(8), supervised=True)
+    trainer = Trainer(cfg, tmp / "chairs_repeat", itertools.repeat(batch), device="cuda")
+    losses = [float(trainer.train_step(batch)["loss"]) for _ in range(12)]
+    print(f"supervised FlowNetS bf16 384x512 batch 8, one batch 12 times: loss "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    if not (np.isfinite(losses).all() and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        raise AssertionError(f"supervised loss does not fall on a repeated batch: {losses}")
+    for ex in ("chairs_s", "chairs_s_decoded", "chairs_c"):
+        shutil.rmtree(cfg.experiment_dir(ex))
+    return paths
+
+
+def run_disocc_spread(tmp: Path) -> None:
+    """The ``disocc`` mask's run-to-run spread on the card: the forward
+    splat's density (float atomics) computed twice on the same flows, the
+    share of mask pixels that differ, on ground-truth flow at 320x1152 and on
+    the finest flows of an init FlowNetC step (bf16, batch 8). A measurement
+    only."""
+    from unflow_tpu_torch.augment import normalize
+    from unflow_tpu_torch.data import DEFAULT_NORMALIZATION
+    from unflow_tpu_torch.losses.terms import DISOCC_THRESH
+    from unflow_tpu_torch.models import FLOW_SCALE, build_model, init_params
+    from unflow_tpu_torch.ops.warp import forward_warp
+
+    batch = host_batches(8, 1, "dense")[0]
+    gt = torch.from_numpy(batch["flow"]).cuda().permute(0, 3, 1, 2).contiguous()
+    cfg = train_config(tmp, corr_impl="cuda")
+    model = build_model(cfg, "cuda")
+    init_params(model, torch.Generator().manual_seed(5))
+    n1, n2 = (normalize(torch.from_numpy(batch[k]).cuda(), *DEFAULT_NORMALIZATION)
+              .permute(0, 3, 1, 2) for k in ("im1", "im2"))
+    with torch.inference_mode():
+        net = model(n1, n2)[-1][0] * FLOW_SCALE
+    for what, flow in (("ground-truth flow 320x1152", gt), ("init FlowNetC flow2 80x288", net)):
+        a, b = forward_warp(flow), forward_warp(flow)
+        torch.cuda.synchronize()
+        diff = (a != b).float().mean().item()
+        mask_diff = ((a < DISOCC_THRESH) != (b < DISOCC_THRESH)).float().mean().item()
+        disoccluded = (a < DISOCC_THRESH).float().mean().item()
+        print(f"disocc spread, {what} batch 8: density max |a-b| {(a - b).abs().max().item():.3e}, "
+              f"share of density pixels that differ {diff:.3e}, share of disocc mask pixels that "
+              f"differ {mask_diff:.3e} (disoccluded share {disoccluded:.4f})",
+              flush=True)
+
+
+def run_affine(tmp: Path) -> dict[str, dict[str, int]]:
+    """configs/synthia_pretrain_c_affine.ini as shipped (FlowNetC, 512x768,
+    batch 8, bf16, the affine augmentation) through ``cli.train`` on a SYNTHIA
+    tree; returns its launch counts by path."""
+    write_synthia_tree(tmp / "data")
+    steps = 6
+    # as shipped: an image summary every display_interval
+    mine, records, wall, expected = run_cli_train(tmp, AFFINE_CONFIG, "synthia_affine", steps,
+                                                  dataset="synthia", display_interval=3,
+                                                  image_summary_interval=0)
+    last = records[-1]
+    print(f"affine cli.train configs/synthia_pretrain_c_affine.ini (decoding Loader) bf16 512x768 "
+          f"batch 8: steps {last['step']} launches {mine} loss "
+          f"{[round(r['loss'], 4) for r in records]} pairs/s {last['pairs_per_sec']:.3f} step_ms "
+          f"{last['step_ms']:.3f} (the last window) {wall:.2f} s", flush=True)
+    if mine != expected:
+        raise AssertionError(f"affine cli.train: launches {mine}, not {expected}")
+    shutil.rmtree(tmp / "log" / "ex" / "synthia_affine")
+    return {f"cli.train synthia_pretrain_c_affine.ini, {steps} steps": mine}
+
+
+def run_summaries(tmp: Path) -> dict[str, dict[str, int]]:
+    """``cli.train`` (configs/kitti_unsup_c.ini, synthetic, 320x1152, batch 8,
+    bf16) with ``tensorboard`` and an image summary every 2 steps, read back
+    with ``read_events``; then ``Trainer.run`` on ready host batches with and
+    without summaries: its step_ms and wall time."""
+    from unflow_tpu_torch.train import Trainer
+    from unflow_tpu_torch.utils.tensorboard import read_events
+
+    steps = 4
+    mine, records, wall, expected = run_cli_train(tmp, CONFIG, "summaries", steps,
+                                                  display_interval=2, tensorboard=True,
+                                                  image_summary_interval=2)
+    ex_dir = tmp / "log" / "ex" / "summaries"
+    (path,) = list((ex_dir / "tb").glob("events.out.tfevents.*"))
+    events = read_events(path)
+    scalar_steps = sorted({e["step"] for e in events if e["scalars"]})
+    images = {(e["step"], tag) for e in events for tag in e["images"]}
+    strips = sorted(p.name for p in (ex_dir / "summaries").iterdir())
+    print(f"summaries cli.train tensorboard=true image_summary_interval=2, {steps} steps: "
+          f"launches {mine}, {len(events)} events, scalars at steps {scalar_steps}, "
+          f"{len(images)} images, strips {strips}, {wall:.2f} s", flush=True)
+    if (scalar_steps != [2, 4] or len(images) != 14 or strips != ["step_00000002", "step_00000004"]
+            or mine != expected):
+        raise AssertionError(f"summaries: events {scalar_steps}, images {sorted(images)}")
+    shutil.rmtree(ex_dir)
+    timed = {}
+    for label, interval in (("without", -1), ("with", 4)):
+        cfg = train_config(tmp, num_iters=12, display_interval=4, image_summary_interval=interval,
+                           tensorboard=interval > 0)
+        trainer = Trainer(cfg, tmp / f"summary_timed_{label}",
+                          itertools.cycle(host_batches(8, 2)), device="cuda")
+        trainer.run(max_iters=4)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        last = json.loads((tmp / f"summary_timed_{label}" / "metrics.jsonl")
+                          .read_text().splitlines()[-1])
+        timed[label] = (last["step_ms"], wall)
+        shutil.rmtree(tmp / f"summary_timed_{label}")
+    print(f"summaries, Trainer.run C bf16 320x1152 batch 8 on ready host batches, steps 5-12: "
+          f"step_ms {timed['without'][0]:.3f} without summaries, {timed['with'][0]:.3f} with one "
+          f"every 4 steps (left out of the window); wall {timed['without'][1]:.3f} s vs "
+          f"{timed['with'][1]:.3f} s: {(timed['with'][1] - timed['without'][1]) / 2 * 1e3:.1f} ms "
+          f"per summary (2 in the run, incl. tensorboard)", flush=True)
+    return {f"cli.train tensorboard + image summaries, {steps} steps": mine}
 
 
 def main() -> int:
@@ -1162,7 +1438,17 @@ def main() -> int:
         for dtype, counts in run_real_eval(tmp).items():
             paths[f"Evaluator.run {dtype} kitti_2012, 8 pairs, batch 4"] = counts
         paths["heldout, 4 steps, 2 evals of 8 batches"] = run_heldout_short(tmp)
-    # the paths of the real-data phases, beside each kernel's main path
+
+        paths.update(run_supervised(tmp))
+        run_train_twin(tmp, "bfloat16", 8, 2e-2, supervised="dense")
+        run_train_twin(tmp, "bfloat16", 8, 2e-2, supervised="sparse")
+        run_train_twin(tmp, "float32", 2, 1e-4, supervised="sparse", control=True)
+        run_train_twin(tmp, "bfloat16", 8, 2e-2, mask_occlusion="disocc")
+        run_disocc_spread(tmp)
+        paths.update(run_affine(tmp))
+        paths["heldout --arms on, 4 steps, 2 evals of 8 batches"] = run_heldout_short(tmp, "on")
+        paths.update(run_summaries(tmp))
+    # the paths of the later phases, beside each kernel's main path
     for path, counts in paths.items():
         for name, count in counts.items():
             report[name].setdefault("other_paths", {})[path] = count

@@ -1,7 +1,8 @@
 """Port's augmentations against the JAX package's. The two random streams
 cannot agree, so each test re-derives the parameters with the JAX function's
-own ``jax.random`` calls and feeds them to the port's ``apply_*``; the
-samplers are checked for shapes and ranges."""
+own ``jax.random`` calls (or takes ``sample_affine_params``' draws) and feeds
+them to the port's ``apply_*``; the samplers are checked for shapes and
+ranges."""
 
 import jax
 import jax.numpy as jnp
@@ -151,3 +152,75 @@ def test_normalize_matches_jax():
     want = augment_jax.normalize(jnp.asarray(im), mean, std)
     np.testing.assert_allclose(augment.normalize(_t(im), mean, std).numpy(), np.asarray(want),
                                rtol=1e-6, atol=1e-6)
+
+
+AFFINE_RANGES = dict(translate=0.05, rotate_deg=5.0, zoom_min=0.9, zoom_max=1.1,
+                     rel_translate=0.02, rel_rotate_deg=1.0, rel_zoom=0.03)
+
+
+def _affine_case(seed):
+    """Frames (2, 12, 20, 3), a flow (2, 12, 20, 2) of a few pixels and a
+    sparse mask, and JAX's affine draws for them, as torch tensors too."""
+    rng = np.random.RandomState(seed)
+    im1, im2 = _pair((2, 12, 20, 3), seed)
+    flow = (rng.randn(2, 12, 20, 2) * 2.0).astype(np.float32)
+    mask = (rng.rand(2, 12, 20, 1) < 0.7).astype(np.float32)
+    params_jax = augment_jax.sample_affine_params(jax.random.PRNGKey(seed), 2, (12, 20),
+                                                  **AFFINE_RANGES)
+    params = augment.AffineParams(*(_t(x) for x in params_jax))
+    return (im1, im2, flow, mask), params_jax, params
+
+
+@pytest.mark.parametrize("given_mask", [True, False], ids=["mask", "synthesized_mask"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_apply_affine_matches_jax(seed, given_mask):
+    """The resampled frames and the remapped flow at 1e-4 (bilinear taps at
+    float coordinates); the masks, a threshold of them, identical but for at
+    most one pixel whose sampled mask lies within 1e-5 of the threshold."""
+    (im1, im2, flow, mask), params_jax, params = _affine_case(seed)
+    want_ims, want_flows, want_masks = augment_jax.apply_affine(
+        params_jax, [jnp.asarray(im1), jnp.asarray(im2)], [jnp.asarray(flow)],
+        [jnp.asarray(mask)] if given_mask else None)
+    got_ims, got_flows, got_masks = augment.apply_affine(
+        params, [_t(im1), _t(im2)], [_t(flow)], [_t(mask)] if given_mask else None)
+    for g, w in zip(got_ims + got_flows, list(want_ims) + list(want_flows)):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+    (g,), (w,) = got_masks, want_masks
+    assert g.shape == w.shape == (2, 12, 20, 1)
+    assert int((g.numpy() != np.asarray(w)).sum()) <= 1
+    assert 0 < float(g.sum()) < g.numel()  # some samples leave the frame or the mask
+    # frames only: no ground truth in, none out
+    ims, flows, masks = augment.apply_affine(params, [_t(im1), _t(im2)])
+    assert flows is None and masks is None and torch.equal(ims[0], got_ims[0])
+
+
+def test_apply_affine_of_the_identity_keeps_everything():
+    im1, im2 = _pair((2, 8, 10, 3))
+    flow = np.random.RandomState(3).randn(2, 8, 10, 2).astype(np.float32)
+    eye = torch.eye(2).expand(2, 2, 2)
+    zero = torch.zeros(2, 2)
+    ims, flows, masks = augment.apply_affine(augment.AffineParams(eye, zero, eye, zero),
+                                             [_t(im1), _t(im2)], [_t(flow)])
+    np.testing.assert_allclose(ims[0].numpy(), im1, atol=1e-6)
+    np.testing.assert_allclose(flows[0].numpy(), flow, atol=1e-5)
+    assert torch.equal(masks[0], torch.ones(2, 8, 10, 1))
+
+
+def test_sample_affine_params_shapes_and_ranges():
+    gen = torch.Generator().manual_seed(4)
+    p = augment.sample_affine_params(gen, 500, (12, 20), **AFFINE_RANGES)
+    assert p.a1.shape == p.a2.shape == (500, 2, 2) and p.t1.shape == p.t2.shape == (500, 2)
+    scale1 = torch.linalg.det(p.a1).sqrt()  # 1 / zoom
+    assert 1 / 1.1 - 1e-6 <= scale1.min() and scale1.max() <= 1 / 0.9 + 1e-6
+    angle1 = torch.atan2(p.a1[:, 1, 0], p.a1[:, 0, 0])
+    assert angle1.abs().max() <= np.deg2rad(5.0) + 1e-6 and angle1.std() > np.deg2rad(1.0)
+    assert p.t1.abs().max() <= 0.05 * 12 + 1e-6
+    d_t = p.t2 - p.t1
+    assert d_t.abs().max() <= 0.02 * 12 + 1e-6 and d_t.abs().max() > 0
+    d_angle = torch.atan2(p.a2[:, 1, 0], p.a2[:, 0, 0]) - angle1
+    assert d_angle.abs().max() <= np.deg2rad(1.0) + 1e-5
+    d_zoom = scale1 / torch.linalg.det(p.a2).sqrt()
+    assert (1 - 0.03 - 1e-5) <= d_zoom.min() and d_zoom.max() <= 1 + 0.03 + 1e-5
+    off = augment.sample_affine_params(gen, 3, (12, 20))
+    assert torch.allclose(off.a1, torch.eye(2).expand(3, 2, 2)) and not off.t2.any()

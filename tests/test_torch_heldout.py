@@ -1,8 +1,10 @@
 """Port's held-out acceptance run (``python -m unflow_tpu_torch.heldout``)
 against ``scripts/heldout_generalization.py``: the held-out set, its
-zero-flow AEE and the held-out AEE of the same parameters; and a short run
-on the CPU, in two segments across the bootstrap boundary."""
+zero-flow AEE and the held-out AEE of the same parameters (float32, and the
+bf16 model at the recipe's correlation), each arm's config; and short runs on
+the CPU, in two segments across the bootstrap boundary, of each arm."""
 
+import argparse
 import importlib.util
 import json
 import shutil
@@ -56,6 +58,49 @@ def test_heldout_set_and_eval_match_the_script(script):
     model.load_state_dict(params_from_flax(jax.device_get(params)))
     got = heldout.make_eval_fn(held, "cpu")(model)["heldout_aee"]
     assert got == pytest.approx(eval_jax(params)["heldout_aee"], rel=1e-4)
+
+
+@pytest.mark.parametrize("hw,batch", [((H, W), BATCH), ((128, 256), 8)], ids=["64x128", "recipe"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_heldout_eval_at_init_matches_jax(script, hw, batch, dtype):
+    """The held-out AEE of JAX's init (``PRNGKey(0)``) with the recipe's
+    correlation (D = 21), in float32 and in bfloat16 as the run trains the
+    model, at 64x128 and at the recipe's 128x256, batch 8: the two packages
+    within 1e-4 (``-s`` prints both)."""
+    h, w = hw
+    cfgs = ConfigJax(), Config()
+    for c in cfgs:
+        c.train.compute_dtype, c.train.max_displacement = dtype, 20
+    cfgs[0].train.corr_impl, cfgs[1].train.corr_impl = "jnp", "torch"
+    model_jax = build_model_jax(cfgs[0])
+    sample = jnp.zeros((1, h, w, 3), jnp.float32)
+    params = jax.jit(model_jax.init)(jax.random.PRNGKey(0), sample, sample)["params"]
+    eval_jax, zero_jax = script.make_eval_fn(model_jax, h, w, batch, "affine", max_shift=32.0)
+    model = build_model(cfgs[1], "cpu")
+    model.load_state_dict(params_from_flax(jax.device_get(params)))
+    got = heldout.make_eval_fn(heldout.heldout_set(batch, h, w), "cpu")(model)["heldout_aee"]
+    want = eval_jax(params)["heldout_aee"]
+    print(f"{h}x{w} batch {batch} {dtype}: held-out AEE JAX {want!r} port {got!r} "
+          f"(relative {abs(got - want) / want:.3e}); zero flow {zero_jax!r}")
+    assert got == pytest.approx(want, rel=1e-4)
+    assert want != pytest.approx(zero_jax, rel=1e-3)  # the init predicts some flow
+
+
+@pytest.mark.parametrize("affine", [False, True], ids=["affine_off", "affine_on"])
+@pytest.mark.parametrize("bootstrap", [False, True])
+def test_build_cfg_matches_the_script(script, affine, bootstrap):
+    """Every train key of each arm's config, as the script builds it with the
+    recipe's arguments."""
+    argv = ["--hw", "64", "96", "--batch", "4", "--steps", "10", "--segments", "2"]
+    mine = heldout.build_cfg(heldout.parse_args(argv), affine=affine, bootstrap=bootstrap).train
+    args = argparse.Namespace(hw=(64, 96), batch=4, steps=10, lr=1e-4, decay_after=0,
+                              segments=2, eval_every=250, dtype="bfloat16", grad_clip=0.0,
+                              no_photometric=False, no_hflip=False, noise=0.04)
+    theirs = script.build_cfg(args, affine=affine, bootstrap=bootstrap).train
+    for key in vars(theirs):
+        if key != "decay_interval":  # flat: decay_after is the last step
+            assert getattr(mine, key) == getattr(theirs, key), key
+    assert (mine.aug_rotate != 0.0) == affine
 
 
 def test_build_cfg_takes_the_recipe_then_the_overrides():
@@ -115,9 +160,37 @@ def test_short_run_in_two_segments_writes_its_summary(tmp_path, script, capsys):
     assert "ternary/scale0" in losses[4] and "photo/scale0" not in losses[4]
 
 
+def test_short_run_of_both_arms(tmp_path):
+    """``--arms both`` at 64x128, batch 2, 2 steps each, one segment: both
+    arms' curves in the summary, the verdict the ``affine_off`` arm's, the
+    ``affine_on`` arm trained with its affine ranges."""
+    out = tmp_path / "heldout.json"
+    argv = ["--device", "cpu", "--hw", str(H), str(W), "--batch", str(BATCH), "--corpus", "4",
+            "--steps", "2", "--segments", "1", "--bootstrap-until", "0", "--eval-every", "2",
+            "--dtype", "float32", "--arms", "both", "--exp-root", str(tmp_path / "ex"),
+            "--out", str(out), "--set", "max_displacement=4"]
+    try:
+        assert heldout.main(argv) == 0
+    finally:
+        for arm in ("affine_off", "affine_on"):
+            shutil.rmtree(tmp_path / "ex" / arm / "checkpoints", ignore_errors=True)
+    summary = json.loads(out.read_text())
+    for arm in ("affine_off", "affine_on"):
+        assert [c["step"] for c in summary[arm]["curve"]] == [2]
+        assert np.isfinite(summary[arm]["final_aee"])
+    assert summary["generalizes"] == (summary["affine_off"]["final_aee"]
+                                      < 0.5 * summary["zero_flow_aee"])
+    assert summary["affine_aee_delta"] == pytest.approx(
+        summary["affine_on"]["final_aee"] - summary["affine_off"]["final_aee"])
+    on = [json.loads(line) for line in
+          (tmp_path / "ex" / "affine_on" / "metrics.jsonl").read_text().splitlines()]
+    off = [json.loads(line) for line in
+           (tmp_path / "ex" / "affine_off" / "metrics.jsonl").read_text().splitlines()]
+    loss = [next(r["loss"] for r in rows if "loss" in r) for rows in (off, on)]
+    assert loss[0] != loss[1]  # the affine draws moved the first step
+
+
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="A13"):
-        heldout.main(["--arms", "on", "--device", "cpu"])
     with pytest.raises(SystemExit, match="--corpus"):
         heldout.main(["--corpus", "0", "--device", "cpu"])
     if not torch.cuda.is_available():

@@ -1,7 +1,8 @@
 """Port's loss stack against the JAX package's: every term of ``terms.py`` on
-its own, ``compute_losses`` at one scale, and the weighted 5-scale
-``unsupervised_loss`` with its logs and its gradient to the flows. The port is
-NCHW, the JAX package NHWC; float32, relative tolerance 1e-5 unless stated."""
+its own, ``compute_losses`` at one scale (every occlusion mode), the weighted
+5-scale ``unsupervised_loss`` with its logs and its gradient to the flows, and
+the 5-scale ``supervised_loss``, dense and sparse. The port is NCHW, the JAX
+package NHWC; float32, relative tolerance 1e-5 unless stated."""
 
 import jax
 import jax.numpy as jnp
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from unflow_tpu.losses import terms as terms_jax
+from unflow_tpu.losses.supervised import supervised_loss as supervised_loss_jax
 from unflow_tpu.losses.unsupervised import compute_losses as compute_losses_jax
 from unflow_tpu.losses.unsupervised import unsupervised_loss as unsupervised_loss_jax
 from unflow_tpu_torch.losses import (
@@ -18,6 +20,7 @@ from unflow_tpu_torch.losses import (
     LAYER_WEIGHTS,
     LOSS_KEYS,
     compute_losses,
+    supervised_loss,
     terms,
     unsupervised_loss,
 )
@@ -53,6 +56,7 @@ def test_constants_match_jax():
     assert LAYER_WEIGHTS == u.LAYER_WEIGHTS
     assert LAYER_PATCH_DISTANCES == u.LAYER_PATCH_DISTANCES
     assert DEFAULT_WEIGHTS == u.DEFAULT_WEIGHTS
+    assert terms.DISOCC_THRESH == terms_jax.DISOCC_THRESH
 
 
 def test_length_sq():
@@ -147,7 +151,7 @@ def _scene(hw, seed, flow_scale=1.5):
 ALL_ON = {key: 1.0 + 0.1 * i for i, key in enumerate(LOSS_KEYS)}
 
 
-@pytest.mark.parametrize("mask_occlusion", ["fb", ""])
+@pytest.mark.parametrize("mask_occlusion", ["fb", "", "disocc"])
 @pytest.mark.parametrize("with_border", [False, True])
 def test_compute_losses_every_term(mask_occlusion, with_border):
     im1, im2, rng = _scene((10, 12), 13)
@@ -178,10 +182,10 @@ def test_compute_losses_skips_terms_of_weight_zero():
 
 
 def test_compute_losses_rejects_unported_and_unknown_masking():
+    # every mode of the JAX package is ported (disocc since the forward
+    # warp): only an unknown one raises
     im = torch.rand(1, 3, 4, 4)
     flow = torch.zeros(1, 2, 4, 4)
-    with pytest.raises(NotImplementedError, match="A9"):
-        compute_losses(im, im, flow, flow, mask_occlusion="disocc")
     with pytest.raises(ValueError, match="unknown mask_occlusion"):
         compute_losses(im, im, flow, flow, mask_occlusion="both")
 
@@ -197,19 +201,22 @@ def _pyramid(hw, seed):
 
 
 @pytest.mark.parametrize(
-    "weights,border_ratio", [(None, 0.0), (ALL_ON, 0.1), ({"photo": 0.5, "ternary": 0.0}, 0.0)]
+    "weights,border_ratio,mask_occlusion",
+    [(None, 0.0, "fb"), (ALL_ON, 0.1, "fb"), ({"photo": 0.5, "ternary": 0.0}, 0.0, "fb"),
+     (None, 0.0, "disocc"), (ALL_ON, 0.1, "disocc")],
 )
-def test_unsupervised_loss_matches_jax(weights, border_ratio):
+def test_unsupervised_loss_matches_jax(weights, border_ratio, mask_occlusion):
     hw = (64, 128)  # the coarsest level is 1x2
     im1, im2, _ = _scene(hw, 15)
     fw, bw = _pyramid(hw, 16), _pyramid(hw, 17)
     want_total, want_logs = unsupervised_loss_jax(
         jnp.asarray(im1), jnp.asarray(im2), [jnp.asarray(f) for f in fw],
         [jnp.asarray(f) for f in bw], weights=weights, border_ratio=border_ratio,
+        mask_occlusion=mask_occlusion,
     )
     got_total, got_logs = unsupervised_loss(
         _nchw(im1), _nchw(im2), [_nchw(f) for f in fw], [_nchw(f) for f in bw],
-        weights=weights, border_ratio=border_ratio,
+        weights=weights, border_ratio=border_ratio, mask_occlusion=mask_occlusion,
     )
     assert set(got_logs) == set(want_logs)
     assert "total" in got_logs and "occ/scale4" in got_logs
@@ -239,3 +246,54 @@ def test_unsupervised_loss_gradient_to_the_flows_matches_jax():
         if level % 5 < 4:  # the 1x2 level's samples all leave the frame: masked, gradient 0
             assert np.abs(np.asarray(want)).max() > 0
         _close(_nhwc(got.grad), want, rtol=1e-4)
+
+
+def _gt(hw, seed, sparse):
+    """Full-resolution ground truth (B, H, W, 2) in pixels and its mask
+    (B, H, W, 1): dense ones, or a KITTI-like sparse mask (about 30% valid,
+    with a block empty at every level of the pyramid but the coarsest)."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    gt = (rng.randn(2, h, w, 2) * 6.0).astype(np.float32)
+    if not sparse:
+        return gt, np.ones((2, h, w, 1), np.float32)
+    mask = (rng.rand(2, h, w, 1) < 0.3).astype(np.float32)
+    mask[:, :32, :32] = 0.0
+    return gt, mask
+
+
+@pytest.mark.parametrize("sparse,pass_mask", [(False, True), (False, False), (True, True)],
+                         ids=["dense", "dense_no_mask", "sparse"])
+def test_supervised_loss_matches_jax(sparse, pass_mask):
+    hw = (64, 128)
+    preds = _pyramid(hw, 21)
+    gt, mask = _gt(hw, 22, sparse)
+    want_total, want_logs = supervised_loss_jax(
+        [jnp.asarray(f) for f in preds], jnp.asarray(gt), jnp.asarray(mask) if pass_mask else None
+    )
+    got_total, got_logs = supervised_loss(
+        [_nchw(f) for f in preds], _nchw(gt), _nchw(mask) if pass_mask else None
+    )
+    assert set(got_logs) == set(want_logs) == {"total"} | {f"epe_charbonnier/scale{i}"
+                                                           for i in range(5)}
+    for key, value in want_logs.items():
+        _close(got_logs[key], value)
+    _close(got_total, want_total)
+    assert got_total.dtype == torch.float32
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_supervised_loss_gradient_matches_jax(sparse):
+    hw = (64, 128)
+    preds = _pyramid(hw, 23)
+    gt, mask = _gt(hw, 24, sparse)
+    want = jax.grad(lambda p: supervised_loss_jax(p, jnp.asarray(gt), jnp.asarray(mask))[0])(
+        [jnp.asarray(f) for f in preds]
+    )
+    t_preds = [_nchw(f).requires_grad_() for f in preds]
+    supervised_loss(t_preds, _nchw(gt), _nchw(mask))[0].backward()
+    for got, w in zip(t_preds, want):
+        assert np.abs(np.asarray(w)).max() > 0
+        _close(_nhwc(got.grad), w, rtol=1e-5)
+    if sparse:  # the empty block's level-0 pixels take no gradient
+        assert float(t_preds[0].grad[:, :, :8, :8].abs().max()) == 0.0

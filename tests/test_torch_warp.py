@@ -1,6 +1,8 @@
-"""Port's backward warp against the JAX package's: values and both gradients,
-against the 4-tap reference ``backward_warp_jnp`` and the default packed
-route, with flows that leave the frame on every side and a 1x2 map."""
+"""Port's warps against the JAX package's: the backward warp's values and both
+gradients, against the 4-tap reference ``backward_warp_jnp`` and the default
+packed route, and the forward splat's (``forward_warp``,
+``forward_warp_image``) values and gradients, with flows that leave the frame
+on every side and a 1x2 map."""
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +12,9 @@ import torch
 
 from unflow_tpu.ops.warp import backward_warp as backward_warp_jax
 from unflow_tpu.ops.warp import backward_warp_jnp
-from unflow_tpu_torch.ops.warp import backward_warp, forward_warp
+from unflow_tpu.ops.warp import forward_warp as forward_warp_jax
+from unflow_tpu.ops.warp import forward_warp_image as forward_warp_image_jax
+from unflow_tpu_torch.ops.warp import backward_warp, forward_warp, forward_warp_image
 
 torch.set_num_threads(1)
 
@@ -82,6 +86,46 @@ def test_backward_warp_rejects_mismatched_flow():
         backward_warp(torch.zeros(1, 3, 4, 4), torch.zeros(1, 2, 4, 5))
 
 
-def test_forward_warp_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A9"):
-        forward_warp(torch.zeros(1, 2, 4, 4))
+@pytest.mark.parametrize("case", CASES)
+def test_forward_warp_values_match_jax(case):
+    """The splat density and the splatted image, float32 at 1e-5: up to four
+    taps land on a pixel, summed in another order."""
+    im, flow = _case(case)
+    want = np.asarray(forward_warp_jax(jnp.asarray(flow)))
+    got = _nhwc(forward_warp(_nchw(flow)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    want = np.asarray(forward_warp_image_jax(jnp.asarray(im), jnp.asarray(flow)))
+    got = _nhwc(forward_warp_image(_nchw(im), _nchw(flow)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0], ids=["right_bottom", "left_top"])
+def test_forward_warp_drops_the_mass_that_leaves_the_frame(sign):
+    """A uniform flow of (0.25, 0.5) px pushes a quarter of the last column's
+    mass and half of the last row's out of a 6x8 frame (the first ones' with
+    the sign flipped): dropped, never clamped onto the border, so the density
+    sums to (7 + 0.75) * (5 + 0.5) of the 48 pixels."""
+    flow = torch.empty(1, 2, 6, 8)
+    flow[:, 0], flow[:, 1] = sign * 0.25, sign * 0.5
+    density = forward_warp(flow)
+    assert density.sum().item() == 7.75 * 5.5
+    assert torch.equal(forward_warp(torch.zeros(1, 2, 6, 8)), torch.ones(1, 1, 6, 8))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_forward_warp_gradients_match_jax(case):
+    im, flow = _case(case)
+    proj = np.random.RandomState(2).randn(*im.shape).astype(np.float32)
+    proj1 = proj[..., :1]
+    want_flow = jax.grad(lambda f: jnp.sum(forward_warp_jax(f) * proj1))(jnp.asarray(flow))
+    t_flow = _nchw(flow).requires_grad_()
+    (forward_warp(t_flow) * _nchw(proj1)).sum().backward()
+    np.testing.assert_allclose(_nhwc(t_flow.grad), np.asarray(want_flow), rtol=1e-4, atol=1e-4)
+
+    want_im, want_flow = jax.grad(
+        lambda a, f: jnp.sum(forward_warp_image_jax(a, f) * proj), argnums=(0, 1)
+    )(jnp.asarray(im), jnp.asarray(flow))
+    t_im, t_flow = _nchw(im).requires_grad_(), _nchw(flow).requires_grad_()
+    (forward_warp_image(t_im, t_flow) * _nchw(proj)).sum().backward()
+    np.testing.assert_allclose(_nhwc(t_im.grad), np.asarray(want_im), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_nhwc(t_flow.grad), np.asarray(want_flow), rtol=1e-4, atol=1e-4)

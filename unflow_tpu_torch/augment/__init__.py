@@ -11,7 +11,7 @@ split in two: ``sample_*_params(generator, ...)`` draws its parameters as
 tensors on the generator's device (nothing is read back to the host, so a
 train step never waits for them), and ``apply_*(..., params)`` is a pure
 function of them. ``random_*`` is the two in a row. The affine augmentation
-(``augment/affine.py``) is not ported yet.
+is in ``augment/affine.py``.
 """
 
 from __future__ import annotations
@@ -166,3 +166,11 @@ def random_order_swap(
     """Per-example temporal order swap with probability ``prob``
     (unsupervised training only: ground-truth flow has one direction)."""
     return apply_order_swap(im1, im2, sample_order_swap_params(generator, im1.shape[0], prob))
+
+
+from unflow_tpu_torch.augment.affine import (  # noqa: E402
+    AffineParams,
+    apply_affine,
+    random_affine,
+    sample_affine_params,
+)

@@ -51,8 +51,8 @@ def build_batches_and_norm(cfg: Config, start_batch: int = 0):
     t = cfg.train
     if t.dataset == "synthetic":
         batches = synthetic_batches(
-            t.batch_size, t.height, t.width, seed=t.seed, start_batch=start_batch,
-            num_threads=t.num_threads,
+            t.batch_size, t.height, t.width, seed=t.seed, supervised=t.supervised,
+            start_batch=start_batch, num_threads=t.num_threads,
         )
         return batches, DEFAULT_NORMALIZATION
     ds_kwargs = {}

@@ -16,14 +16,15 @@ to ``torch``/``cuda`` --, ``max_displacement``, ``corr_stride``), the input
 ``num_iters``, ``learning_rate``, ``decay_after``, ``decay_interval``,
 ``weight_decay``, ``grad_clip_norm``, ``display_interval``,
 ``save_interval``, ``eval_interval``, ``seed``, ``train_all``,
-``finetune``), the loss (the ``*_weight`` keys, ``mask_occlusion``,
+``finetune``, ``supervised``, ``image_summary_interval``,
+``tensorboard``), the loss (the ``*_weight`` keys, ``mask_occlusion``,
 ``border_ratio``) and the augmentation (``aug_swap_prob``,
-``aug_photometric``, ``aug_hflip``, ``aug_noise_stddev``).
-``conv_impl``, ``deconv_impl`` and ``remat`` select XLA lowerings on the TPU;
-they are accepted and ignored. Keys of parts that are not ported yet
-(``supervised``, the affine ``aug_*`` ranges, ``tensorboard``,
-``image_summary_interval`` > 0, ``num_devices`` > 1, ``spatial_shards`` > 1)
-make the trainer raise when they ask for those parts.
+``aug_photometric``, ``aug_hflip``, ``aug_noise_stddev`` and the affine
+ranges ``aug_translate``, ``aug_rotate``, ``aug_zoom_min``,
+``aug_zoom_max``, ``aug_rel_*``). ``conv_impl``, ``deconv_impl`` and
+``remat`` select XLA lowerings on the TPU; they are accepted and ignored.
+Several devices (``num_devices`` > 1, ``spatial_shards`` > 1) are not
+ported yet and make the trainer raise.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Held-out acceptance run: does unsupervised UnFlow-C training generalize?
 
-Port of ``scripts/heldout_generalization.py`` (its ``affine_off`` arm).
-FlowNetC trains unsupervised on a fixed corpus of ``--corpus`` synthetic
-pairs (``data/synthetic.py::corpus_iterator``: textures under a similarity
-motion of up to ``MAX_SHIFT`` px, cycled in epochs), and every ``--eval-every``
+Port of ``scripts/heldout_generalization.py``, both of its arms: ``off``
+trains without the affine augmentation, ``on`` with the ranges of
+``AFFINE_ON`` (``--arms both`` runs the two in turn). FlowNetC trains
+unsupervised on a fixed corpus of ``--corpus`` synthetic pairs
+(``data/synthetic.py::corpus_iterator``: textures under a similarity motion
+of up to ``MAX_SHIFT`` px, cycled in epochs), and every ``--eval-every``
 steps its AEE is measured on 64 held-out pairs it never trains on (seed
 ``HELDOUT_SEED``). Steps [0, ``--bootstrap-until``) train with the plain
 photometric data term (``photo_weight=1``, ``ternary_weight=0``,
@@ -18,11 +20,12 @@ flip augmentation with noise 0.04) is fixed; ``--set KEY=VALUE`` overrides a
 train key of every segment for a diagnostic.
 
   python -m unflow_tpu_torch.heldout --steps 8000 --segments 2 --corpus 4096 \\
-      --bootstrap-until 2000 --eval-every 250 --out log/heldout.json
+      --bootstrap-until 2000 --eval-every 250 --arms both --out log/heldout.json
 
 It runs on the GPU unless ``--device cpu``, and writes a JSON summary to
-``--out``: the held-out AEE curve, the final and best AEE, the zero-flow
-AEE, the wall time and the verdict.
+``--out``: for each arm the held-out AEE curve, the final and best AEE, the
+zero-flow AEE and the wall time; the verdict is the ``affine_off`` arm's
+when it ran, else the ``affine_on`` arm's.
 """
 
 from __future__ import annotations
@@ -50,6 +53,13 @@ DATA_MODE = "affine"  # similarity motion of the train and held-out pairs
 MAX_SHIFT = 32.0  # synthetic max displacement in px
 LEARNING_RATE = 1e-4  # flat for the whole run
 CRITERION = 0.5  # pass iff final AEE < CRITERION * zero-flow AEE
+# the affine_on arm's ranges, as the script sets them: conservative, to add
+# pose diversity without distorting the data
+AFFINE_ON = {
+    "aug_translate": 0.05, "aug_rotate": 3.0, "aug_zoom_min": 0.95, "aug_zoom_max": 1.05,
+    "aug_rel_translate": 0.01, "aug_rel_rotate": 0.5, "aug_rel_zoom": 0.01,
+}
+ARMS = {"off": ("affine_off",), "on": ("affine_on",), "both": ("affine_off", "affine_on")}
 
 
 def heldout_set(batch: int, h: int, w: int) -> list[dict]:
@@ -85,10 +95,11 @@ def make_eval_fn(held: list[dict], device: torch.device | str):
     return eval_fn
 
 
-def build_cfg(args, bootstrap: bool = False) -> Config:
+def build_cfg(args, affine: bool = False, bootstrap: bool = False) -> Config:
     """FlowNetC at ``--hw`` with the recipe's flat learning rate; with
-    ``bootstrap`` the photometric objective of the first phase; then the
-    ``--set`` overrides."""
+    ``affine`` the ranges of ``AFFINE_ON``; with ``bootstrap`` the
+    photometric objective of the first phase; then the ``--set``
+    overrides."""
     cfg = Config()
     t = cfg.train
     if bootstrap:
@@ -111,6 +122,9 @@ def build_cfg(args, bootstrap: bool = False) -> Config:
     t.aug_photometric = True
     t.aug_hflip = True
     t.aug_noise_stddev = 0.04
+    if affine:
+        for key, value in AFFINE_ON.items():
+            setattr(t, key, value)
     for kv in args.set:
         key, _, value = kv.partition("=")
         if key not in _FIELD_TYPES:
@@ -128,10 +142,11 @@ def segment_bounds(steps: int, segments: int, bootstrap_until: int) -> list[int]
     return bounds
 
 
-def run_arm(args, device: torch.device) -> dict:
-    """Train the ``affine_off`` arm segment by segment; its curve and verdict."""
+def run_arm(args, name: str, device: torch.device) -> dict:
+    """Train the arm ``name`` (``affine_off`` or ``affine_on``) segment by
+    segment; its curve, final and best AEE."""
     h, w = args.hw
-    exp = Path(args.exp_root) / "affine_off"
+    exp = Path(args.exp_root) / name
     if exp.exists():
         shutil.rmtree(exp)
     held = heldout_set(args.batch, h, w)
@@ -142,7 +157,7 @@ def run_arm(args, device: torch.device) -> dict:
     bounds = segment_bounds(args.steps, args.segments, args.bootstrap_until)
     for start, until in zip(bounds, bounds[1:]):
         bootstrap = bool(args.bootstrap_until) and until <= args.bootstrap_until
-        cfg = build_cfg(args, bootstrap=bootstrap)
+        cfg = build_cfg(args, affine=name == "affine_on", bootstrap=bootstrap)
         # a fixed corpus cycled in epochs, generated once and cached; uint8
         # frames, which the train step converts on the device
         stream = corpus_iterator(args.batch, h, w, n_pairs=args.corpus, seed=0, mode=DATA_MODE,
@@ -155,7 +170,7 @@ def run_arm(args, device: torch.device) -> dict:
         trainer.run(max_iters=until)
         if trainer.step != until:
             raise RuntimeError(f"segment [{start}, {until}) ended at step {trainer.step}")
-        print(f"[{time.perf_counter() - t0:.1f} s] segment [{start}, {until}) done"
+        print(f"[{time.perf_counter() - t0:.1f} s] {name} segment [{start}, {until}) done"
               f"{' (bootstrap)' if bootstrap else ''}", flush=True)
     wall = time.perf_counter() - t0
 
@@ -185,8 +200,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--segments", type=int, default=2,
                     help="segments, each a new Trainer resuming from the checkpoint")
-    ap.add_argument("--arms", choices=("off", "on", "both"), default="off",
-                    help="off: no affine augmentation (the only arm ported)")
+    ap.add_argument("--arms", choices=tuple(ARMS), default="off",
+                    help="off: no affine augmentation; on: AFFINE_ON's ranges; both: the two")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--corpus", type=int, default=4096,
                     help="train on a fixed corpus of N pairs cycled in epochs")
@@ -206,15 +221,14 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.corpus < 1:
         raise SystemExit("--corpus must be at least 1 pair")
-    if args.arms != "off":
-        raise NotImplementedError(
-            "the affine_on arm needs the affine augmentation, which is not ported yet: "
-            "ROADMAP item A13"
-        )
     device = resolve_device(args.device)
 
-    result = run_arm(args, device)
-    print(json.dumps(result), flush=True)
+    results = {}
+    for name in ARMS[args.arms]:
+        print(f"=== {name} ===", flush=True)
+        results[name] = run_arm(args, name, device)
+        print(json.dumps(results[name]), flush=True)
+    result = results.get("affine_off") or results["affine_on"]
     summary = {
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "geometry": (f"{args.hw[0]}x{args.hw[1]} batch {args.batch} "
@@ -231,16 +245,21 @@ def main(argv=None) -> int:
                       if args.bootstrap_until else "none (the UnFlow objective throughout)"),
         "zero_flow_aee": result["zero_flow_aee"],
         "criterion": f"final_aee < {CRITERION} * zero_flow_aee",
-        "affine_off": result,
+        **results,
         "generalizes": bool(result["final_aee"] is not None
                             and result["final_aee"] < CRITERION * result["zero_flow_aee"]),
     }
+    if len(results) == 2 and None not in (results["affine_off"]["final_aee"],
+                                          results["affine_on"]["final_aee"]):
+        summary["affine_aee_delta"] = (results["affine_on"]["final_aee"]
+                                       - results["affine_off"]["final_aee"])
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(summary, indent=1))
     print(json.dumps({k: summary[k] for k in ("device", "zero_flow_aee", "generalizes")}))
-    print(f"final AEE {result['final_aee']} best {result['best_aee']} zero-flow "
-          f"{result['zero_flow_aee']} wall {result['wall_s']:.1f} s -> {out}")
+    for name, r in results.items():
+        print(f"{name}: final AEE {r['final_aee']} best {r['best_aee']} zero-flow "
+              f"{r['zero_flow_aee']} wall {r['wall_s']:.1f} s -> {out}")
     return 0
 
 

@@ -1,6 +1,6 @@
-"""Losses of the port (port of ``unflow_tpu/losses``). The supervised loss
-is not ported yet."""
+"""Losses of the port (port of ``unflow_tpu/losses``)."""
 
+from unflow_tpu_torch.losses.supervised import supervised_loss
 from unflow_tpu_torch.losses.unsupervised import (
     DEFAULT_WEIGHTS,
     LAYER_PATCH_DISTANCES,
@@ -16,5 +16,6 @@ __all__ = [
     "LAYER_WEIGHTS",
     "LOSS_KEYS",
     "compute_losses",
+    "supervised_loss",
     "unsupervised_loss",
 ]

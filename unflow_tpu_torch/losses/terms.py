@@ -12,6 +12,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+# a pixel on which less splat mass than this lands is disoccluded
+DISOCC_THRESH = 0.8
+
 
 def length_sq(x: torch.Tensor) -> torch.Tensor:
     return x.square().sum(dim=1, keepdim=True)

@@ -19,6 +19,7 @@ from typing import Sequence
 import torch
 
 from unflow_tpu_torch.losses.terms import (
+    DISOCC_THRESH,
     charbonnier_loss,
     create_border_mask,
     create_outgoing_mask,
@@ -31,7 +32,7 @@ from unflow_tpu_torch.losses.terms import (
 )
 from unflow_tpu_torch.models.flownet import FLOW_SCALE
 from unflow_tpu_torch.ops.downsample import downsample
-from unflow_tpu_torch.ops.warp import backward_warp
+from unflow_tpu_torch.ops.warp import backward_warp, forward_warp
 
 LOSS_KEYS = ("occ", "sym", "fb", "grad", "ternary", "photo", "smooth_1st", "smooth_2nd")
 
@@ -65,10 +66,10 @@ def compute_losses(
     """Loss terms at one pyramid scale; ``(B, 3, H, W)`` images and
     ``(B, 2, H, W)`` flows in this scale's pixels.
 
-    ``mask_occlusion``: ``fb`` (forward-backward consistency) or empty (no
-    occlusion masking); ``disocc`` needs the forward warp, which is not
-    ported yet. ``weights``: when given, terms with weight 0 are not
-    computed; None computes every term.
+    ``mask_occlusion``: ``fb`` (forward-backward consistency), ``disocc``
+    (pixels on which the other direction's forward splat lands less than
+    ``DISOCC_THRESH``) or empty (no occlusion masking). ``weights``: when
+    given, terms with weight 0 are not computed; None computes every term.
     """
 
     def active(key: str) -> bool:
@@ -100,9 +101,12 @@ def compute_losses(
         mask_fw = mask_fw * (1.0 - occ_fw)
         mask_bw = mask_bw * (1.0 - occ_bw)
     elif mask_occlusion == "disocc":
-        raise NotImplementedError(
-            "mask_occlusion='disocc' needs forward_warp, which is not ported yet: ROADMAP item A9"
-        )
+        # pixels of frame 1 that nothing maps to under the backward flow are
+        # disoccluded: out of the forward data term
+        disocc_fw = (forward_warp(flow_bw) < DISOCC_THRESH).to(im1.dtype)
+        disocc_bw = (forward_warp(flow_fw) < DISOCC_THRESH).to(im1.dtype)
+        mask_fw = mask_fw * (1.0 - disocc_fw)
+        mask_bw = mask_bw * (1.0 - disocc_bw)
     elif mask_occlusion not in ("", "none", None):
         raise ValueError(f"unknown mask_occlusion mode {mask_occlusion!r}")
 

@@ -1,4 +1,4 @@
-"""Dense bilinear backward warp, in NCHW.
+"""Dense bilinear backward warp and forward splat, in NCHW.
 
 Port of ``unflow_tpu/ops/warp.py::backward_warp`` (``backward_warp_jnp`` and
 the packed route compute the same values and gradients): ``out[p] =
@@ -15,8 +15,13 @@ uses float atomics, so two runs of one step differ in the last bits. The
 reference's 4C channel packing and its chunking of large gathers work around
 the TPU's gather and have no counterpart here.
 
-``forward_warp`` (the splat behind ``mask_occlusion="disocc"``) is not ported
-yet.
+``forward_warp`` and ``forward_warp_image`` (ports of the JAX functions of
+the same names) splat along the flow instead: each source pixel adds its
+value, weighted by the bilinear weights, to the four pixels around its target.
+Targets outside the frame receive nothing (the mass is dropped, never
+clamped). The splat is ``index_add_`` on a flat ``(B, C, H*W)`` buffer, so on
+CUDA it accumulates with float atomics and its last bits differ from run to
+run.
 """
 
 from __future__ import annotations
@@ -52,7 +57,41 @@ def backward_warp(im: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return top * (1.0 - wy) + bot * wy
 
 
+def _splat(values: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Bilinear forward splat of ``values`` ``(B, C, H, W)`` along ``flow``
+    ``(B, 2, H, W)``; out-of-frame mass is dropped."""
+    b, c, h, w = values.shape
+    ct = torch.promote_types(flow.dtype, torch.float32)
+    x = torch.arange(w, dtype=ct, device=flow.device) + flow[:, 0].to(ct)
+    y = torch.arange(h, dtype=ct, device=flow.device)[:, None] + flow[:, 1].to(ct)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx = (x - x0).to(values.dtype)
+    wy = (y - y0).to(values.dtype)
+    # The batch is folded into the index, so one index_add serves every
+    # example; an out-of-frame tap goes to one spare slot past the end,
+    # which is dropped (a boolean mask would wait for the device).
+    n = b * h * w
+    base = (torch.arange(b, device=flow.device) * (h * w))[:, None, None]
+    src = values.transpose(0, 1).reshape(c, n)
+    out = values.new_zeros(c, n + 1)
+    for iy, yw in ((y0, 1.0 - wy), (y0 + 1, wy)):
+        for ix, xw in ((x0, 1.0 - wx), (x0 + 1, wx)):
+            inb = (ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)
+            idx = base + iy.clamp(0, h - 1).long() * w + ix.clamp(0, w - 1).long()
+            idx = torch.where(inb, idx, n).reshape(n)
+            out = out.index_add(1, idx, src * (xw * yw).reshape(1, n))
+    return out[:, :n].reshape(c, b, h, w).transpose(0, 1)
+
+
 def forward_warp(flow: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(
-        "forward_warp (and mask_occlusion='disocc') is not ported yet: ROADMAP item A9"
-    )
+    """Splat density map ``(B, 1, H, W)``: how much mass lands on each pixel
+    when every pixel is pushed along ``flow`` ``(B, 2, H, W)``. Pixels where
+    nothing lands are disoccluded."""
+    return _splat(torch.ones_like(flow[:, :1]), flow)
+
+
+def forward_warp_image(im: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Forward-warp ``im`` ``(B, C, H, W)`` by splatting (unnormalized
+    accumulation)."""
+    return _splat(im, flow)
