@@ -224,6 +224,9 @@ KERNEL_CASES = [
     ("odd", (2, 24, 75, 256), 10, 1),
     (SIMT_CASE, (16, 40, 144, 256), 20, 4),
     ("heldout", (16, 16, 32, 256), 20, 2),  # the held-out run: 128x256, batch 8
+    # configs/chairs_supervised.ini as FlowNetC: 384x512, batch 8, one direction
+    ("supervised", (8, 48, 64, 256), 20, 2),
+    ("affine", (16, 64, 96, 256), 20, 2),  # configs/synthia_pretrain_c_affine.ini: 512x768
 ]
 
 

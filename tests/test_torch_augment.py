@@ -4,6 +4,8 @@ own ``jax.random`` calls (or takes ``sample_affine_params``' draws) and feeds
 them to the port's ``apply_*``; the samplers are checked for shapes and
 ranges."""
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -224,3 +226,19 @@ def test_sample_affine_params_shapes_and_ranges():
     assert (1 - 0.03 - 1e-5) <= d_zoom.min() and d_zoom.max() <= 1 + 0.03 + 1e-5
     off = augment.sample_affine_params(gen, 3, (12, 20))
     assert torch.allclose(off.a1, torch.eye(2).expand(3, 2, 2)) and not off.t2.any()
+
+
+def test_random_affine_applies_its_own_draws():
+    """``random_affine`` is ``sample_affine_params`` at the frames' batch and
+    size, then ``apply_affine``: equal to the two steps run on a generator
+    of the same seed, bit for bit, and another seed moves it."""
+    (im1, im2, flow, mask), _, _ = _affine_case(0)
+    args = ([_t(im1), _t(im2)], [_t(flow)], [_t(mask)])
+    got = augment.random_affine(torch.Generator().manual_seed(7), *args, **AFFINE_RANGES)
+    params = augment.sample_affine_params(torch.Generator().manual_seed(7), 2, (12, 20),
+                                          **AFFINE_RANGES)
+    want = augment.apply_affine(params, *args)
+    for g, w in zip(itertools.chain(*got), itertools.chain(*want)):
+        assert torch.equal(g, w)
+    other = augment.random_affine(torch.Generator().manual_seed(8), *args, **AFFINE_RANGES)
+    assert not torch.equal(other[0][0], got[0][0])

@@ -41,7 +41,7 @@ from unflow_tpu_torch.augment import AffineParams
 from unflow_tpu_torch.convert import params_from_flax
 from unflow_tpu_torch.data.synthetic import corpus_iterator
 from unflow_tpu_torch.train import Trainer
-from unflow_tpu_torch.train.trainer import affine_ranges
+from unflow_tpu_torch.train.trainer import affine_ranges, make_train_step
 
 torch.set_num_threads(1)
 
@@ -122,19 +122,52 @@ def load_jax_state(trainer: Trainer, state) -> None:
     trainer.state.step = int(host.step)
 
 
-def _update_agreement(trainer: Trainer, before, after, lr: float) -> float:
+def _update_agreement(trainer: Trainer, before, after, lr: float) -> tuple[float, float]:
     """The share of parameter elements whose update by the port's step lies
     within 1% of ``lr`` of the JAX step's (Adam moves an element by up to lr,
-    and by a size set by eps where its gradient is near eps)."""
+    and by a size set by eps where its gradient is near eps): over all the
+    parameters, and the least over the leaves with one element of each
+    forgiven (a fault confined to a small leaf, a bias or a flow head, shows
+    in the second; one element whose gradient lies within rounding of zero
+    may move by up to lr either way, which in a leaf of 32 is 3%)."""
     want = params_from_flax(jax.device_get(after.params))
     old = params_from_flax(jax.device_get(before.params))
     close = total = 0
+    least = 1.0
     for name, p in trainer.model.named_parameters():
         got_update = p.detach() - old[name]
         want_update = want[name] - old[name]
-        close += int(((got_update - want_update).abs() < 0.01 * lr).sum())
+        leaf = int(((got_update - want_update).abs() < 0.01 * lr).sum())
+        close += leaf
         total += p.numel()
-    return close / total
+        least = min(least, min(leaf + 1, p.numel()) / p.numel())
+    return close / total, least
+
+
+# optax.adam's defaults, which the JAX package's optimizer uses
+ADAM_BETAS = (0.9, 0.999)
+
+
+def _moment_gap(trainer: Trainer, before, after) -> float:
+    """The largest gap, over the parameter leaves, of Adam's moments after
+    the port's step (``exp_avg``, ``exp_avg_sq``) from the JAX step's
+    (``mu``, ``nu``): the L2 norm of the difference over that of JAX's
+    moment plus that of this step's part of it (``m - beta * m_before``),
+    so that a moment which this step's gradient nearly cancels is held at
+    the gradient's scale. Adam's step count must equal JAX's."""
+    prev = _adam_state(jax.device_get(before.opt_state))
+    adam = _adam_state(jax.device_get(after.opt_state))
+    moments = [(params_from_flax(adam.mu), params_from_flax(prev.mu), "exp_avg", ADAM_BETAS[0]),
+               (params_from_flax(adam.nu), params_from_flax(prev.nu), "exp_avg_sq", ADAM_BETAS[1])]
+    gap = 0.0
+    for name, p in trainer.model.named_parameters():
+        slot = trainer.state.optimizer.state[p]
+        assert int(slot["step"]) == int(adam.count), name
+        for want, want_prev, key, beta in moments:
+            w = want[name]
+            scale = w.norm() + (w - beta * want_prev[name]).norm()
+            gap = max(gap, float((slot[key] - w).norm() / scale.clamp_min(1e-30)))
+    return gap
 
 
 def recipe_configs(tmp_path, steps: int, *, hw=(64, 128), batch=2, dtype="float32",
@@ -174,8 +207,10 @@ def run_side_by_side(tmp_path, steps: int, *, hw=(64, 128), batch=2, dtype="floa
     * ``free``: the port's own trajectory;
     * ``forced``: the port's step taken from the JAX state before the step
       (parameters, Adam's moments and count), so that it is held against the
-      JAX step along the JAX trajectory, with ``update_agreement`` (the
-      share of parameter updates within 1% of lr of the JAX step's);
+      JAX step along the JAX trajectory, with ``update_agreement`` and
+      ``leaf_agreement`` (the share of parameter updates within 1% of lr of
+      the JAX step's, over all and in the worst leaf) and ``moment_gap``
+      (Adam's moments against JAX's, the worst leaf);
     * ``noise``: a second free port trajectory whose steps run on 4 threads
       (the others on 1): its gap to ``free`` is the spread that summation
       order alone opens, the noise floor of the comparison.
@@ -196,11 +231,13 @@ def run_side_by_side(tmp_path, steps: int, *, hw=(64, 128), batch=2, dtype="floa
     step_jax = jax.jit(make_train_step_jax(model_jax, tx, cfg_jax))
     key = jax.random.PRNGKey(cfg.train.seed)  # what the JAX Trainer passes every step
 
-    draws = (lambda step: jax_draws(cfg, step, hw)) if augment else None
     runs = [name for name, on in (("free", free), ("forced", forced), ("noise", noise)) if on]
     init = params_from_flax(jax.device_get(params))
     trainers = {name: Trainer(cfg, tmp_path / name, itertools.repeat(None), device="cpu",
-                              params=init, draws=draws) for name in runs}
+                              params=init) for name in runs}
+    if augment:
+        for trainer in trainers.values():
+            trainer._step_fn = make_train_step(cfg, draws=lambda step: jax_draws(cfg, step, hw))
     evals = None
     if eval_every:
         eval_jax, _ = _script().make_eval_fn(model_jax, h, w, eval_batch, heldout.DATA_MODE,
@@ -227,8 +264,9 @@ def run_side_by_side(tmp_path, steps: int, *, hw=(64, 128), batch=2, dtype="floa
             row[name] = {k: float(v) for k, v in trainer.train_step(b).items()}
             torch.set_num_threads(threads)
             if name == "forced":
-                row[name]["update_agreement"] = _update_agreement(
+                row[name]["update_agreement"], row[name]["leaf_agreement"] = _update_agreement(
                     trainer, before, state, cfg.train.learning_rate)
+                row[name]["moment_gap"] = _moment_gap(trainer, before, state)
         if evals and row["step"] % eval_every == 0:
             row["jax"]["heldout_aee"] = evals[0](state.params)["heldout_aee"]
             for name in ("free", "noise"):
@@ -243,10 +281,16 @@ def _rel(got: float, want: float) -> float:
 
 
 def _print_rows(rows, run="free", keys=("loss", "grad_norm", "heldout_aee")):
+    """Each step's ``keys``: JAX's value, the port's and their relative gap,
+    or the port's alone where JAX has none (the forced steps' readings)."""
     for r in rows:
         cells = [f"{k} {r['jax'][k]:.7g}/{r[run][k]:.7g} ({_rel(r[run][k], r['jax'][k]):.2e})"
-                 for k in keys if k in r["jax"] and k in r[run]]
+                 if k in r["jax"] else f"{k} {r[run][k]:.7g}"
+                 for k in keys if k in r[run]]
         print(f"step {r['step']:4d} {run} " + "  ".join(cells), flush=True)
+
+
+FORCED_KEYS = ("loss", "grad_norm", "lr", "update_agreement", "leaf_agreement", "moment_gap")
 
 
 def _forced_gaps(row) -> tuple[float, float]:
@@ -269,18 +313,27 @@ def test_steps_with_augmentation_follow_jax(tmp_path, affine):
     an element by up to lr whatever the size of its gradient). So each of
     the port's steps is taken from the JAX state before it (parameters,
     Adam's moments and count) and held against the JAX step: the loss and
-    each logged term within 2e-5, ``grad_norm`` within 1e-4, and at least
-    98% of the parameter updates within 1% of lr of the JAX step's (Adam's
-    bias correction and the learning rate at every step). Exempt, as in
+    each logged term within 2e-5, ``grad_norm`` within 1e-4, the learning
+    rate within 1e-6 and Adam's step count equal at every step; each leaf's
+    moments (``exp_avg``, ``exp_avg_sq`` against ``mu``, ``nu``) within 5e-3
+    (``_moment_gap``; they read up to 2.3e-3, in the deep encoder's layers,
+    whose gradients sum the few pixels of 4x8 and 2x4 maps; most steps
+    under 1e-4); and at least 99.9% of the parameter updates within 1% of
+    lr of the JAX step's, and 99% in every leaf with one element forgiven
+    (Adam's bias correction, eps and the learning rate, leaf by leaf; they
+    read at least 99.98% and 99.6%). Exempt, as in
     ``test_torch_train.py::test_several_steps_follow_jax``: one step at
     which a pixel of a coarse level's outgoing mask flips may read up to
-    5e-3."""
+    5e-3 in its terms and ``grad_norm``."""
     rows = run_side_by_side(tmp_path, 12, affine=affine, free=False, forced=True)
-    _print_rows(rows, "forced", ("loss", "grad_norm", "update_agreement"))
+    _print_rows(rows, "forced", FORCED_KEYS)
     parted = []
     for r in rows:
-        assert set(r["forced"]) - {"update_agreement"} == set(r["jax"]), r["step"]
-        assert r["forced"]["update_agreement"] > 0.98, r["step"]
+        port = r["forced"]
+        assert set(port) - set(FORCED_KEYS) == set(r["jax"]) - set(FORCED_KEYS), r["step"]
+        assert port["lr"] == pytest.approx(r["jax"]["lr"], rel=1e-6), r["step"]
+        assert port["moment_gap"] < 5e-3, r["step"]
+        assert port["update_agreement"] > 0.999 and port["leaf_agreement"] > 0.99, r["step"]
         terms, grad_norm = _forced_gaps(r)
         if terms > 2e-5 or grad_norm > 1e-4:
             parted.append((r["step"], terms, grad_norm))
@@ -338,15 +391,20 @@ def _aee_gaps(rows, run, ref):
 
 
 # (run_side_by_side's arguments; the forced steps' median gap of the loss
-# terms; their largest gap; the least share of parameter updates that agree)
+# terms; their largest gap; the least share of parameter updates that agree;
+# in float32 also the least share in a leaf and the largest gap of a leaf's
+# Adam moments, as in the twelve-step test: over 250 steps the moments read
+# up to 6.0e-3, where a leaf's gradient nearly cancels, against 1e-1 or more
+# for a moment computed with another beta)
 SLOW_CASES = {
-    "off_f32": (dict(augment=False, dtype="float32"), 2e-5, 5e-3, 0.98),
-    "on_f32": (dict(augment=True, dtype="float32"), 2e-5, 5e-3, 0.98),
+    "off_f32": (dict(augment=False, dtype="float32"), 2e-5, 5e-3, 0.999, 0.99, 1e-2),
+    "on_f32": (dict(augment=True, dtype="float32"), 2e-5, 5e-3, 0.999, 0.99, 1e-2),
     # bfloat16: the two packages round the towers at other points (the
     # whole gradient of one step lies 3.2% from float32's in the port and
-    # 3.4% in JAX), so a forced step parts at that level
-    "off_bf16": (dict(augment=False, dtype="bfloat16"), 5e-2, 2e-1, 0.5),
-    "on_bf16": (dict(augment=True, dtype="bfloat16"), 5e-2, 2e-1, 0.5),
+    # 3.4% in JAX), so a forced step parts at that level; the leaves and
+    # the moments are printed, not held
+    "off_bf16": (dict(augment=False, dtype="bfloat16"), 5e-2, 2e-1, 0.5, None, None),
+    "on_bf16": (dict(augment=True, dtype="bfloat16"), 5e-2, 2e-1, 0.5, None, None),
 }
 
 
@@ -359,36 +417,41 @@ def test_250_steps_follow_jax(tmp_path, case):
 
     Held: every forced step (the port's step from the JAX state) within the
     case's gaps, and at least the case's share of the parameter updates
-    within 1% of lr of the JAX step's. In float32 the free-running port stays
-    within its own spread: the largest gap to JAX of the loss averaged over
-    50-step windows, and of the held-out AEE, at most three times the
-    largest gap between the port and its 4-thread twin, plus 1e-3.
+    within 1% of lr of the JAX step's; in float32 also each leaf's share and
+    Adam's moments, as in the twelve-step test. In float32 the free-running
+    port stays within its own spread: the largest gap to JAX of the loss
+    averaged over 50-step windows, and of the held-out AEE, at most three
+    times the largest gap between the port and its 4-thread twin, plus 1e-3.
 
     Printed, not held: in bfloat16 the free-running runs part beyond that
     spread. From step 50 the JAX package's held-out AEE falls to 15.27-15.34
     while the port's stays at 15.40-15.49, as both float32 runs do; the
     port's loss sits 0.03-0.26% under JAX's in every window. ROADMAP C2
     records it."""
-    kwargs, median_tol, max_tol, agreement = SLOW_CASES[case]
+    kwargs, median_tol, max_tol, agreement, leaf_agreement, moment_tol = SLOW_CASES[case]
     rows = run_side_by_side(tmp_path, 250, max_displacement=20, n_pairs=64, eval_every=25,
                             forced=True, noise=True, **kwargs)
     _print_rows(rows, "free")
-    _print_rows(rows, "forced", ("loss", "grad_norm", "update_agreement"))
+    _print_rows(rows, "forced", FORCED_KEYS)
     gaps = np.array([_forced_gaps(r) for r in rows])
     least = min(r["forced"]["update_agreement"] for r in rows)
+    least_leaf = min(r["forced"]["leaf_agreement"] for r in rows)
+    moment_gap = max(r["forced"]["moment_gap"] for r in rows)
     jax_w, free_w, noise_w = (_window_means(rows, run) for run in ("jax", "free", "noise"))
     loss_gap = np.abs(free_w - jax_w) / jax_w
     loss_spread = np.abs(noise_w - free_w) / free_w
     aee_gap, aee_spread = _aee_gaps(rows, "free", "jax"), _aee_gaps(rows, "noise", "free")
     print(f"forced steps: terms gap median {np.median(gaps[:, 0]):.3e} max {gaps[:, 0].max():.3e}; "
           f"grad_norm median {np.median(gaps[:, 1]):.3e} max {gaps[:, 1].max():.3e}; "
-          f"update agreement least {least:.5f}")
+          f"update agreement least {least:.5f}, in a leaf {least_leaf:.5f}; "
+          f"Adam's moments largest gap {moment_gap:.3e}")
     print("windows of 50 steps: loss jax", np.round(jax_w, 4), "port", np.round(free_w, 4),
           "gap", np.round((free_w - jax_w) / jax_w, 5), "port's spread", np.round(loss_spread, 5))
     print("held-out AEE gap to jax", np.round(aee_gap, 5), "port's spread", np.round(aee_spread, 5))
     assert np.median(gaps[:, 0]) < median_tol and gaps.max() < max_tol
     assert least > agreement
     if kwargs["dtype"] == "float32":
+        assert least_leaf > leaf_agreement and moment_gap < moment_tol
         assert loss_gap.max() <= 3 * loss_spread.max() + 1e-3
         assert aee_gap.max() <= 3 * aee_spread.max() + 1e-3
 

@@ -268,7 +268,6 @@ class Trainer:
       eval_fn: ``eval_fn(model) -> {name: value}``, called every
         ``eval_interval`` steps (for example ``cli.train.build_eval_fn``);
         its values are logged as ``eval/<name>``.
-      draws: the test seam of :func:`make_train_step`.
 
     Image summaries of the current batch are written every
     ``image_summary_interval`` steps (0: every ``display_interval``; -1:
@@ -287,14 +286,13 @@ class Trainer:
         params: dict[str, torch.Tensor] | None = None,
         finetune_dirs: Iterable[str | Path] = (),
         eval_fn: Callable[[FlowNetStack], dict] | None = None,
-        draws: Callable[[int], dict] | None = None,
     ):
         t = cfg.train
         self.cfg = cfg
         self.exp_dir = Path(exp_dir)
         self.batches = iter(batch_iterator)
         self.device = resolve_device(device)  # before the model: no GPU fails fast
-        self._step_fn = make_train_step(cfg, normalization, draws)
+        self._step_fn = make_train_step(cfg, normalization)
 
         model = build_model(cfg, "cpu")
         if params is None:
