@@ -139,6 +139,31 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 event file is read back with ``read_events`` (the scalars of
                 steps 2 and 4, 7 images at each); then ``Trainer.run`` on ready
                 host batches with and without summaries: step_ms and wall time.
+ 17. distributed -- ``cli.train`` under ``torchrun`` (this script re-run as
+                ``--ddp-worker``, which joins the group and runs several
+                ``cli.train`` jobs in it, the launch counts set to 0 before
+                each) on the packed KITTI raw tree, configs/kitti_unsup_c.ini
+                at 320x1152, global batch 8: one rank over NCCL (bf16, 4 steps;
+                then one bf16 and one f32 step), each launching its three
+                kernels once a step; two ranks (one per card over NCCL with two
+                cards, else both on one card over gloo; printed) the same runs,
+                held against the one-rank runs from the same config (one
+                ``metrics.jsonl`` record a step; losses, one step's averaged
+                gradient and the parameters' relative L2 within 2e-2 in bf16,
+                1e-4 in f32 with TF32 off and cuDNN deterministic); the 2-rank
+                checkpoint restored by the one-process ``Evaluator(exp_dir=)``
+                against its plain twin; a 2-rank csS run resumed at step 2
+                identical to the uninterrupted one; step_ms and pairs/s of one
+                and two ranks.
+ 18. flops   -- ``utils/flops.py``'s count of the UnFlow-C bf16 step at 320x1152,
+                batch 8 (as the JAX package counts it), and the MFU of phase 4's
+                step against ``peak_flops()`` (none for an unknown card).
+ 19. profile hooks -- ``utils.profiling.trace`` around two bf16 train steps: the
+                trace reads back and names the three tensor-core kernels;
+                ``StepTimer``'s rate beside phase 4's pairs/s.
+ 20. native decode -- ``UNFLOW_NATIVE=1``: the C++ sidecar builds into
+                ``_build/``; the KITTI trees' frames and 16-bit flows and a
+                ``Loader`` epoch equal the PIL / numpy path's bit for bit.
 
 Prints the GPU's name and power limit first, then a line per check, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -154,6 +179,7 @@ import statistics
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1370,6 +1396,344 @@ def run_summaries(tmp: Path) -> dict[str, dict[str, int]]:
     return {f"cli.train tensorboard + image summaries, {steps} steps": mine}
 
 
+DDP_STEPS = 4
+
+
+def ddp_worker(spec_path: str) -> int:
+    """One process of a ``torchrun`` job that ``run_distributed`` starts:
+    joins the group over the spec's backend, then runs each job of the spec
+    through ``unflow_tpu_torch.cli.train.main`` (the launch counts set to 0
+    just before, read just after) and writes what it saw to
+    ``<out>.<rank>``."""
+    sys.path.insert(0, str(ROOT))
+    from unflow_tpu_torch.cli.train import main as train_main
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+    from unflow_tpu_torch.parallel import init_distributed, process_shard
+    from unflow_tpu_torch.train import Trainer
+
+    from unflow_tpu_torch.utils.profiling import trace
+
+    spec = json.loads(Path(spec_path).read_text())
+    init_distributed(spec["device"], backend=spec["backend"])
+    rank = process_shard()[0]
+    torch.backends.cudnn.allow_tf32 = False  # float32 means float32 in this check
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run, train_step = Trainer.run, Trainer.train_step
+
+    def profiled(self, batch, _at=None, _dir=None):
+        if self.step != _at:
+            return train_step(self, batch)
+        with trace(_dir):
+            return train_step(self, batch)
+
+    results = []
+    for job in spec["jobs"]:
+        torch.backends.cudnn.deterministic = job["deterministic"]
+        # a job cut at ``stop_after`` steps stands for a run that was killed there
+        Trainer.run = (lambda self, max_iters=None, _n=job.get("stop_after"): run(self, _n)
+                       ) if job.get("stop_after") else run
+        # the step after ``profile_step`` steps runs under the profiler
+        Trainer.train_step = (lambda self, batch, _at=job.get("profile_step"),
+                              _dir=f"{spec['out']}_{job['name']}_rank{rank}":
+                              profiled(self, batch, _at, _dir)) if "profile_step" in job else train_step
+        reset_launch_counts()
+        t = time.perf_counter()
+        rc = train_main(job["argv"])
+        torch.cuda.synchronize()
+        results.append({"name": job["name"], "rc": rc, "seconds": time.perf_counter() - t,
+                        "launches": {k: v for k, v in launch_counts().items() if v}})
+    Path(f"{spec['out']}.{rank}").write_text(json.dumps(results))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_torchrun(tmp: Path, nproc: int, jobs: list[dict], device: str,
+                 backend: str | None) -> list[list[dict]]:
+    """``torchrun --nproc-per-node nproc chip_smoke.py --ddp-worker``: each
+    rank's results of ``jobs``."""
+    out = tmp / f"torchrun_{nproc}"
+    spec = tmp / f"torchrun_{nproc}.json"
+    spec.write_text(json.dumps({"device": device, "backend": backend, "jobs": jobs,
+                                "out": str(out)}))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+           "--master-addr", "localhost", "--master-port", str(port),
+           str(ROOT / "chip_smoke.py"), "--ddp-worker", str(spec)]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tmp, capture_output=True, text=True, timeout=900)
+    print(f"torchrun --nproc-per-node {nproc} ({backend or 'nccl'}, --device {device}): "
+          f"rc {proc.returncode} {time.perf_counter() - t:.2f} s", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return [json.loads(Path(f"{out}.{rank}").read_text()) for rank in range(nproc)]
+
+
+def allreduce_in_trace(path: Path) -> str:
+    """What a profiled train step's trace shows of the gradients' all-reduce:
+    for each event named all-reduce (the launch on the autograd thread, the
+    backend's own work, an NCCL kernel), its count and time, and how much of
+    that time lies inside the backward pass (the span of the autograd
+    engine's functions) and after it, beside the step's span."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    bwd = [e for e in events if e["name"].startswith("autograd::engine::evaluate_function")]
+    b0, b1 = min(e["ts"] for e in bwd), max(e["ts"] + e["dur"] for e in bwd)
+    names: dict[str, list[float]] = {}
+    for e in events:
+        if "allreduce" in e["name"].lower().replace("_", ""):
+            row = names.setdefault(e["name"][:48], [0, 0.0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += e["dur"] / 1e3
+            row[2] += max(0.0, min(e["ts"] + e["dur"], b1) - max(e["ts"], b0)) / 1e3
+            row[3] += max(0.0, e["ts"] + e["dur"] - max(e["ts"], b1)) / 1e3
+    rows = "; ".join(f"{name} x{n} {ms:.3f} ms ({inside:.3f} inside the backward, {after:.3f} "
+                     f"after it)" for name, (n, ms, inside, after) in names.items())
+    return (f"step span {(end - start) / 1e3:.3f} ms, backward {(b1 - b0) / 1e3:.3f} ms "
+            f"(ends {(end - b1) / 1e3:.3f} ms before the step does); {rows or 'no all-reduce'}")
+
+
+def _records(tmp: Path, ex: str) -> list[dict]:
+    return [json.loads(line) for line in
+            (tmp / "log" / "ex" / ex / "metrics.jsonl").read_text().splitlines()]
+
+
+def _checkpoint(tmp: Path, ex: str, step: int) -> dict:
+    return torch.load(tmp / "log" / "ex" / ex / "checkpoints" / f"{step}.pt",
+                      map_location="cpu", weights_only=True)
+
+
+def _param_gap(mine: dict, ref: dict) -> float:
+    """Relative L2 of ``mine - ref`` over all tensors of ``ref``."""
+    num = sum(torch.sum((mine[k].double() - v.double()) ** 2).item() for k, v in ref.items())
+    return (num / sum(torch.sum(v.double() ** 2).item() for v in ref.values())) ** 0.5
+
+
+def run_distributed(tmp: Path) -> dict[str, dict[str, int]]:
+    """The data-parallel path: ``cli.train`` under ``torchrun`` on the packed
+    KITTI raw tree (configs/kitti_unsup_c.ini, 320x1152, global batch 8).
+    One rank over NCCL: bf16 for ``DDP_STEPS`` steps, then one step each in
+    bf16 and in f32 (TF32 off, cuDNN deterministic). Two ranks, one per card
+    over NCCL with two cards or more, else both on one card over gloo: the
+    same three runs, held against the one-rank runs from the same snapshot
+    (the same config, so the same init and batches); then csS (cuDNN
+    deterministic) four steps uninterrupted and as two segments cut at step
+    2, which must agree bit for bit. Returns the launch counts of each run,
+    summed over its ranks."""
+    from unflow_tpu_torch.config import load_config
+    from unflow_tpu_torch.models import DTYPES, build_model, init_params
+    from unflow_tpu_torch.ops.cuda.correlation import kernel_name
+
+    cards = torch.cuda.device_count()
+    nccl2 = cards >= 2
+    print(f"distributed: 2 ranks {'on 2 cards over NCCL' if nccl2 else 'on one card over gloo'} "
+          f"({cards} card(s) visible)", flush=True)
+    base = train_config(tmp, dataset="kitti_raw", packed_dir=str(tmp / "packed"),
+                        display_interval=1, eval_interval=0)
+    ini = tmp / "ddp_c.ini"
+    shutil.copy(tmp / CONFIG.name, ini)
+    train_config(tmp, CSS_CONFIG, dataset="kitti_raw", packed_dir=str(tmp / "packed"),
+                 display_interval=1, eval_interval=0, save_interval=2)
+    css_ini = tmp / "ddp_css.ini"
+    shutil.copy(tmp / CSS_CONFIG.name, css_ini)
+    runs = {"bf16": ("bfloat16", DDP_STEPS, False), "bf16_step": ("bfloat16", 1, False),
+            "f32_step": ("float32", 1, True)}
+    profile_step = DDP_STEPS - 1  # the last step of the bf16 run, profiled
+
+    def job(name, ranks, dtype="bfloat16", steps=4, deterministic=True, config=css_ini, **extra):
+        argv = ["--config", str(config), "--ex", f"ddp_{name}_{ranks}", "--set",
+                f"compute_dtype={dtype}", "--set", f"num_iters={steps}", "--device",
+                "cuda" if ranks == 1 or nccl2 else "cuda:0"]
+        if config == ini:  # one checkpoint, at the end
+            argv += ["--set", f"save_interval={steps}"]
+        return {"name": name, "argv": argv, "deterministic": deterministic, **extra}
+
+    one = run_torchrun(tmp, 1, [job(n, 1, *r, config=ini, **({"profile_step": profile_step}
+                                                             if n == "bf16" else {}))
+                                for n, r in runs.items()], "cuda", None)
+    two = run_torchrun(tmp, 2, [job(n, 2, *r, config=ini, **({"profile_step": profile_step}
+                                                             if n == "bf16" else {}))
+                                for n, r in runs.items()] + [
+        job("css", 2), job("css_split", 2, stop_after=2), job("css_split", 2),
+    ], "cuda" if nccl2 else "cuda:0", None if nccl2 else "gloo")
+
+    paths = {}
+    for ranks, results in ((1, one), (2, two)):
+        for i, res in enumerate(results[0]):
+            per_rank = [r[i]["launches"] for r in results]
+            total = {k: sum(c.get(k, 0) for c in per_rank) for k in per_rank[0]}
+            print(f"distributed {ranks} rank(s) {res['name']}: rc {[r[i]['rc'] for r in results]} "
+                  f"launches per rank {per_rank} {res['seconds']:.2f} s", flush=True)
+            if any(r[i]["rc"] != 0 for r in results):
+                raise AssertionError(f"{res['name']} failed")
+            if res["name"] in runs:
+                dtype, steps, _ = runs[res["name"]]
+                expected = {kernel_name(op, DTYPES[dtype], 256, base.train.max_displacement, 2):
+                            steps for op in ("fwd", "bwd_f1", "bwd_f2")}
+                if any(c != expected for c in per_rank):
+                    raise AssertionError(f"{res['name']}: launches {per_rank}, want {expected}")
+                paths[f"torchrun {ranks} rank(s), cli.train kitti_raw packed {dtype}, "
+                      f"{steps} step(s)"] = total
+
+    # both runs start from the config's seed: one init
+    model = build_model(load_config(ini), "cpu")
+    init_params(model, torch.Generator().manual_seed(base.train.seed))
+    start = model.state_dict()
+    for name, tol in (("bf16", 2e-2), ("bf16_step", 2e-2), ("f32_step", 1e-4)):
+        steps = runs[name][1]
+        a, b = _records(tmp, f"ddp_{name}_1"), _records(tmp, f"ddp_{name}_2")
+        if not [r["step"] for r in a] == [r["step"] for r in b] == list(range(1, steps + 1)):
+            raise AssertionError(f"ddp {name}: metrics.jsonl has not one record per step: {b}")
+        gaps = [abs(x["loss"] - y["loss"]) / abs(x["loss"]) for x, y in zip(a, b)]
+        ck1, ck2 = (_checkpoint(tmp, f"ddp_{name}_{r}", steps) for r in (1, 2))
+        params = _param_gap(ck2["model"], ck1["model"])
+        updates = _param_gap(*({k: ck["model"][k] - v for k, v in start.items()}
+                               for ck in (ck2, ck1)))
+        line = (f"distributed {name}: 2 ranks against 1, global batch 8, losses of steps "
+                f"1-{steps} {[round(r['loss'], 5) for r in b]} vs {[round(r['loss'], 5) for r in a]}"
+                f" (relative gaps {[f'{g:.2e}' for g in gaps]}); parameters' relative L2 gap "
+                f"{params:.3e}, their updates' {updates:.3e}")
+        grad = 0.0
+        if steps == 1:  # Adam's first moment after one step: 0.1 x the averaged gradient
+            moments = [[s["exp_avg"] for s in ck["optimizer"]["state"].values()]
+                       for ck in (ck2, ck1)]
+            grad = _param_gap(dict(enumerate(moments[0])), dict(enumerate(moments[1])))
+            line += (f"; gradient relative L2 gap {grad:.3e}, grad_norm {b[0]['grad_norm']:.6g}"
+                     f" vs {a[0]['grad_norm']:.6g}")
+        print(f"{line} (tolerance {tol} on each)", flush=True)
+        if max(gaps) > tol or grad > tol or params > tol:
+            raise AssertionError(f"ddp {name}: 2 ranks do not follow 1")
+    for ranks in (1, 2):
+        # after the first step's warm-up, before the profiled one
+        rec = _records(tmp, f"ddp_bf16_{ranks}")[1:profile_step]
+        step_ms = statistics.mean(r["step_ms"] for r in rec)
+        print(f"distributed bf16 320x1152 global batch 8, {ranks} rank(s): step_ms {step_ms:.3f}"
+              f" pairs/s {8e3 / step_ms:.3f} (steps 2-{profile_step}, the Trainer's windows: "
+              f"{[round(r['step_ms'], 3) for r in rec]})", flush=True)
+        profile = Path(f"{tmp / f'torchrun_{ranks}'}_bf16_rank0") / "trace.json"
+        print(f"  profile of step {profile_step + 1}, rank 0: {allreduce_in_trace(profile)}",
+              flush=True)
+    # the 2-rank run's checkpoint serves the 1-process Evaluator
+    launches, _ = run_eval("bfloat16", "corr_fwd_bf16", 2e-2,
+                           exp_dir=tmp / "log" / "ex" / "ddp_bf16_2")
+    paths["Evaluator(exp_dir=2-rank checkpoint) bf16, batch 4"] = {"corr_fwd_bf16": launches}
+    whole, split = _records(tmp, "ddp_css_2"), _records(tmp, "ddp_css_split_2")
+    p1, p2 = (_checkpoint(tmp, ex, 4)["model"] for ex in ("ddp_css_2", "ddp_css_split_2"))
+    diff = max((p1[k].float() - p2[k].float()).abs().max().item() for k in p1)
+    losses = ({r["step"]: r["loss"] for r in whole}, {r["step"]: r["loss"] for r in split})
+    print(f"distributed resume csS bf16, 2 ranks: losses {losses[0]} uninterrupted, {losses[1]} "
+          f"in two segments cut at step 2; largest parameter difference {diff:.3e} (both must be "
+          f"identical)", flush=True)
+    if losses[0] != losses[1] or sorted(losses[0]) != [1, 2, 3, 4] or diff != 0:
+        raise AssertionError("the resumed 2-rank csS run is not identical to the uninterrupted one")
+    for ex in [f"ddp_{n}_{r}" for n in runs for r in (1, 2)] + ["ddp_css_2", "ddp_css_split_2"]:
+        shutil.rmtree(tmp / "log" / "ex" / ex)
+    return paths
+
+
+def run_flops(ready_pairs_per_s: float) -> None:
+    """The conv/matmul FLOPs of the UnFlow-C bf16 step at 320x1152, batch 8
+    (``utils/flops.py``, counted as the JAX package counts them), and the MFU
+    of phase 4's timed step against this card's dense bf16 peak."""
+    from unflow_tpu_torch.config import load_config
+    from unflow_tpu_torch.utils.flops import peak_flops, train_step_flops
+
+    t = time.perf_counter()
+    flops = train_step_flops(load_config(CONFIG))
+    peak = peak_flops()
+    name = torch.cuda.get_device_name(0)
+    step_s = 8 / ready_pairs_per_s
+    print(f"flops: UnFlow-C bf16 320x1152 batch 8 train step {flops:,} FLOPs (traced on fake "
+          f"tensors in {time.perf_counter() - t:.2f} s)", flush=True)
+    if peak is None:
+        print(f"flops: no dense bf16 peak is known for {name!r}: MFU not computed", flush=True)
+    else:
+        print(f"flops: MFU of phase 4's Trainer.run step ({step_s * 1e3:.3f} ms, "
+              f"{ready_pairs_per_s:.3f} pairs/s) {flops / step_s / peak:.4f} of {name}'s "
+              f"{peak / 1e12:.0f} TFLOP/s dense bf16 peak ({flops / step_s / 1e12:.2f} TFLOP/s)",
+              flush=True)
+
+
+def run_profile_hooks(tmp: Path, ready_pairs_per_s: float) -> None:
+    """``utils.profiling.trace`` around two bf16 train steps writes a trace
+    that reads back and names the three tensor-core correlation kernels;
+    ``StepTimer``'s rate over those steps beside the Trainer's."""
+    from unflow_tpu_torch.train import Trainer
+    from unflow_tpu_torch.utils.profiling import StepTimer, trace
+
+    cfg = train_config(tmp)
+    trainer = Trainer(cfg, tmp / "profile_hooks", itertools.cycle(host_batches(8, 2)),
+                      device="cuda")
+    for _ in range(3):  # warm-up
+        trainer.train_step(next(trainer.batches))
+    timer = StepTimer()
+    with trace(tmp / "profile_hooks" / "trace") as prof:
+        timer.start()
+        for _ in range(2):
+            logs = trainer.train_step(next(trainer.batches))
+            timer.tick(8)
+        rate = timer.rate(logs["loss"])
+    path = tmp / "profile_hooks" / "trace" / "trace.json"
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    mine = sorted({k for k in kernels for word in PROFILE_GROUPS["correlation kernels (this repo)"]
+                   if word in k})
+    print(f"profile hooks: trace.json {path.stat().st_size / 2**20:.1f} MiB, {len(events)} events, "
+          f"{len(kernels)} kernel names, correlation kernels {[k[:60] for k in mine]}; "
+          f"{len(prof.key_averages())} ops and kernels by name", flush=True)
+    print(f"profile hooks: StepTimer {rate:.3f} pairs/s over 2 steps under the profiler; the "
+          f"Trainer's pairs_per_sec (phase 4, unprofiled) {ready_pairs_per_s:.3f}", flush=True)
+    names = ("corr_fwd_mma_kernel", "corr_bwd_f1_mma_kernel", "corr_bwd_f2_mma_kernel")
+    if not all(any(n in k for k in mine) for n in names):
+        raise AssertionError(f"the trace names no tensor-core correlation kernel: {mine}")
+    shutil.rmtree(tmp / "profile_hooks")
+
+
+def run_native(tmp: Path) -> None:
+    """``UNFLOW_NATIVE=1``: the C++ decode sidecar builds into ``_build/``;
+    its frames and KITTI 16-bit flows of the KITTI trees equal the PIL /
+    numpy path's bit for bit, and a Loader epoch with it equals one without."""
+    from unflow_tpu_torch.data import get_dataset, native
+    from unflow_tpu_torch.data.base import Loader
+    from unflow_tpu_torch.data.io import read_image, read_kitti_png_flow
+
+    t = time.perf_counter()
+    lib = native.build()
+    print(f"native decode: built {lib.relative_to(ROOT)} in {time.perf_counter() - t:.2f} s",
+          flush=True)
+    data = tmp / "data"
+    frames = sorted((data / "kitti_raw").rglob("*.png")) + sorted(
+        (data / "kitti_2012").rglob("colored_0/*.png"))
+    flows = sorted((data / "kitti_2012").rglob("flow_*/*.png"))
+    examples = get_dataset("kitti_2012", data).train_examples()
+
+    def read_all():
+        out = [read_image(p) for p in frames] + [x for p in flows for x in read_kitti_png_flow(p)]
+        loader = Loader(examples, batch_size=4, load_hw=(320, 1152), supervised=True, seed=0,
+                        loop=False, num_threads=4, image_dtype="float32")
+        return out, list(loader)
+
+    timings = {}
+    for mode in ("0", "1"):
+        os.environ["UNFLOW_NATIVE"] = mode
+        t = time.perf_counter()
+        timings[mode] = (read_all(), time.perf_counter() - t)
+    os.environ.pop("UNFLOW_NATIVE")
+    (plain, plain_batches), (mine, batches) = timings["0"][0], timings["1"][0]
+    same = (all(np.array_equal(a, b) for a, b in zip(mine, plain))
+            and len(batches) == len(plain_batches)
+            and all(np.array_equal(a[k], b[k]) for a, b in zip(batches, plain_batches) for k in a))
+    print(f"native decode: {len(frames)} frames and {len(flows)} KITTI flows at 375x1242, a Loader "
+          f"epoch of {len(batches)} batches: {'bit-identical' if same else 'DIFFERENT'} to PIL / "
+          f"numpy; {timings['1'][1]:.2f} s native, {timings['0'][1]:.2f} s PIL / numpy "
+          f"(host clock)", flush=True)
+    if not same or not frames or not flows:
+        raise AssertionError("the native sidecar does not decode what PIL / numpy decodes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1451,6 +1815,10 @@ def main() -> int:
         paths.update(run_affine(tmp))
         paths["heldout --arms on, 4 steps, 2 evals of 8 batches"] = run_heldout_short(tmp, "on")
         paths.update(run_summaries(tmp))
+        paths.update(run_distributed(tmp))
+        run_flops(ready_pairs_per_s)
+        run_profile_hooks(tmp, ready_pairs_per_s)
+        run_native(tmp)
     # the paths of the later phases, beside each kernel's main path
     for path, counts in paths.items():
         for name, count in counts.items():
@@ -1469,4 +1837,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ddp-worker":
+        sys.exit(ddp_worker(sys.argv[2]))
     sys.exit(main())

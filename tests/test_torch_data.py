@@ -214,8 +214,8 @@ def test_kitti_raw_warnings(tmp_path, rng):
     messages = " ".join(str(w.message) for w in record)
     assert len(examples) == 3
     assert "contaminates" in messages and "partial corpus" in messages
-    # the hint names no download command the port lacks
-    assert "A13" in messages and "cli.download" not in messages
+    # the hint names the port's download command
+    assert "python -m unflow_tpu_torch.cli.download kitti_raw" in messages
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         get_dataset("kitti_raw", tmp_path, exclude="off", warn_partial_corpus=False).train_examples()
@@ -245,7 +245,7 @@ def test_registry_normalization_and_missing_data(tmp_path):
         get_dataset("synthetic", tmp_path)
     with pytest.raises(KeyError):
         get_dataset("bogus", tmp_path)
-    with pytest.raises(FileNotFoundError, match="A13"):
+    with pytest.raises(FileNotFoundError, match="python -m unflow_tpu_torch.cli.download kitti_raw"):
         get_dataset("kitti_raw", tmp_path).train_examples()
 
 

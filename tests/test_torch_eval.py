@@ -4,6 +4,7 @@ plain correlation), on the CPU."""
 
 import re
 import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -257,6 +258,42 @@ def test_cli_eval_prints_the_jax_line(kitti, flax_params, capsys, monkeypatch):
         assert abs(a - b) <= tol, (i, got, want)
 
 
-def test_cli_eval_gui_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A13"):
+def test_cli_eval_gui_names_its_roadmap_item(monkeypatch):
+    """``--gui`` without matplotlib (as on the GPU machine) fails at once with
+    an ImportError that names it, before any evaluation; it does not run
+    headless."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setitem(sys.modules, "matplotlib.pyplot", None)
+    with pytest.raises(ImportError, match="--gui pager needs matplotlib"):
         eval_main(["--ex", "none", "--dataset", "kitti_2012", "--gui", "--device", "cpu"])
+
+
+def test_cli_eval_gui_pages_what_the_jax_one_pages(kitti, flax_params, monkeypatch):
+    """``cli.eval --gui`` of the port and of the JAX package on one
+    experiment: the pagers open on the same four panels (the flows within the
+    colour coding's rounding of each other)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    root, _, _ = kitti
+    log = _experiments(root, flax_params)
+    monkeypatch.chdir(root)
+    shown = []
+    monkeypatch.setattr(plt, "show", lambda: shown.append(plt.gcf()))
+    try:
+        assert eval_main_jax(["--ex", "jax_ex", "--dataset", "kitti_2012", "--gui",
+                              "--num", "3"]) == 0
+        assert eval_main(["--ex", "port_ex", "--dataset", "kitti_2012", "--gui", "--num", "3",
+                          "--device", "cpu"]) == 0
+    finally:
+        shutil.rmtree(log)
+    panels = [[ax.get_images()[0].get_array() for ax in fig.axes] for fig in shown]
+    assert [ax.get_title() for ax in shown[1].axes] == [ax.get_title() for ax in shown[0].axes]
+    assert shown[1].axes[0].get_title() == "frame 1 [1/3]"
+    for got, want in zip(*reversed(panels)):
+        # frame 1 exactly; flow colours and the error image within a few levels
+        np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
+                                   atol=4 if np.asarray(want).dtype == np.uint8 else 2e-2)
+    plt.close("all")

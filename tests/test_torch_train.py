@@ -282,11 +282,17 @@ def test_frozen_spec_leaves_nothing_to_train(tmp_path, batch):
 
 
 @pytest.mark.parametrize(
-    "key,value,item", [("num_devices", 4, "A13"), ("spatial_shards", 2, "A13")],
+    "key,value,item",
+    # the ids are those of the time both keys named A13; several devices are
+    # ported now (one process per GPU): in one process num_devices = 4 names the
+    # torchrun command that starts four; W-sharding is A16
+    [pytest.param("num_devices", 4, "torchrun --nproc-per-node 4", id="num_devices-4-A13"),
+     pytest.param("spatial_shards", 2, "A16", id="spatial_shards-2-A13")],
 )
 def test_unported_parts_raise_with_their_roadmap_item(tmp_path, batch, key, value, item):
     cfg = _config(Config, tmp_path, **{key: value})
-    with pytest.raises(NotImplementedError, match=item):
+    error = ValueError if key == "num_devices" else NotImplementedError
+    with pytest.raises(error, match=item):
         Trainer(cfg, tmp_path / "ex", itertools.repeat(batch), device="cpu")
 
 

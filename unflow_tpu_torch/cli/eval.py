@@ -3,8 +3,11 @@
 Port of ``unflow_tpu/cli/eval.py``: restores the experiment's latest
 checkpoint (its snapshot supplies the network unless ``--config`` is given),
 evaluates a dataset's eval split with :meth:`Evaluator.run`, prints AEE, Fl
-and the occluded / non-occluded breakdown, and with ``--output`` dumps the
-flows. It runs on the GPU unless ``--device cpu``.
+and the occluded / non-occluded breakdown, with ``--output`` dumps the
+flows, and with ``--gui`` pages through the first ``--num`` (8) predictions
+in a matplotlib window (``eval/gui.py``; it fails at once, before the
+evaluation, where matplotlib is missing). It runs on the GPU unless
+``--device cpu``.
 
   python -m unflow_tpu_torch.cli.eval --ex kitti_c --dataset kitti_2012
   python -m unflow_tpu_torch.cli.eval --ex kitti_c --dataset sintel \\
@@ -19,6 +22,7 @@ from unflow_tpu_torch.config import Config, load_config
 from unflow_tpu_torch.data import dataset_normalization, get_dataset
 from unflow_tpu_torch.device import resolve_device
 from unflow_tpu_torch.eval.evaluate import Evaluator
+from unflow_tpu_torch.eval.gui import display, import_pyplot
 
 
 def main(argv=None) -> int:
@@ -33,11 +37,11 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8, help="same-shape pairs per forward pass")
     ap.add_argument("--output", default=None, help="dump directory")
     ap.add_argument("--format", default="flo", choices=("flo", "kitti_png", "viz"))
-    ap.add_argument("--gui", action="store_true", help="matplotlib pager (not ported)")
+    ap.add_argument("--gui", action="store_true", help="matplotlib pager")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = ap.parse_args(argv)
     if args.gui:
-        raise NotImplementedError("the matplotlib pager (--gui) is not ported yet: ROADMAP item A13")
+        import_pyplot()  # no matplotlib: fail before the evaluation, not after
 
     cfg = load_config(args.config) if args.config else Config()
     ex_dir = cfg.experiment_dir(args.ex)
@@ -59,7 +63,7 @@ def main(argv=None) -> int:
     evaluator = Evaluator(cfg, ex_dir, normalization=norm, device=device)
     metrics = evaluator.run(
         examples, max_examples=args.num, output_dir=args.output, output_format=args.format,
-        eval_batch=args.batch,
+        collect=(args.num or 8) if args.gui else 0, eval_batch=args.batch,
     )
     line = (
         f"{args.dataset}{'/' + args.variant if args.variant else ''}: "
@@ -70,6 +74,8 @@ def main(argv=None) -> int:
     if "aee_occ" in metrics:
         line += f" | occ-only: AEE={metrics['aee_occ']:.4f}"
     print(line)
+    if args.gui:
+        display(metrics["entries"])  # collected by run(): nothing is decoded again
     return 0
 
 

@@ -13,6 +13,11 @@ every ``eval_interval`` steps. It runs on the GPU unless ``--device cpu``.
 Rerunning an experiment resumes it from its latest checkpoint, under its
 snapshot (``--config`` and ``--set`` are then ignored), on the batches an
 uninterrupted run would have seen.
+
+On several GPUs, one process each (``batch_size`` stays the global batch;
+``--device cpu`` runs the processes on the CPU over gloo):
+
+  torchrun --nproc-per-node 2 -m unflow_tpu_torch.cli.train --config ... --ex ...
 """
 
 from __future__ import annotations
@@ -36,6 +41,14 @@ from unflow_tpu_torch.data.synthetic import batch_iterator as synthetic_batches
 from unflow_tpu_torch.device import resolve_device
 from unflow_tpu_torch.eval.evaluate import predict_flow
 from unflow_tpu_torch.eval.metrics import flow_error_avg
+from unflow_tpu_torch.parallel import (
+    barrier,
+    init_distributed,
+    is_lead_process,
+    local_device,
+    per_process_batch_size,
+    process_shard,
+)
 from unflow_tpu_torch.train import CheckpointManager, Trainer
 
 # A dataset without ground truth of its own is evaluated on another one during
@@ -45,13 +58,20 @@ EVAL_DATASET = {"kitti_raw": "kitti_2012"}
 
 
 def build_batches_and_norm(cfg: Config, start_batch: int = 0):
-    """The host batch stream of ``cfg`` and its normalization. The stream is
-    step-indexed: ``start_batch`` is the step a resumed run starts at. A
-    dataset directory that does not exist raises here."""
+    """This process's host batch stream of ``cfg`` and its normalization. The
+    stream is step-indexed: ``start_batch`` is the step a resumed run starts
+    at. A dataset directory that does not exist raises here.
+
+    ``batch_size`` is the global batch: under several processes each loads
+    its contiguous rows of every global batch (the union is the one-process
+    stream), and the synthetic stream of process ``r`` is drawn from ``seed +
+    r``, as in the JAX package."""
     t = cfg.train
+    shard = process_shard()
+    local_bs = per_process_batch_size(t.batch_size)
     if t.dataset == "synthetic":
         batches = synthetic_batches(
-            t.batch_size, t.height, t.width, seed=t.seed, supervised=t.supervised,
+            local_bs, t.height, t.width, seed=t.seed + shard[0], supervised=t.supervised,
             start_batch=start_batch, num_threads=t.num_threads,
         )
         return batches, DEFAULT_NORMALIZATION
@@ -64,12 +84,13 @@ def build_batches_and_norm(cfg: Config, start_batch: int = 0):
     examples = PackedExamples(t.packed_dir) if t.packed_dir else dataset.train_examples()
     loader = Loader(
         examples,
-        batch_size=t.batch_size,
+        batch_size=local_bs,
         load_hw=(t.height, t.width),
         supervised=t.supervised,
         seed=t.seed,
         num_threads=t.num_threads,
         mode=t.input_mode,
+        shard=shard,
         start_batch=start_batch,
         # uint8 frames to the device; the train step converts f32/255 (exact)
         image_dtype="uint8" if t.input_mode == "crop_pad" else "float32",
@@ -127,12 +148,19 @@ def main(argv=None) -> int:
             raise SystemExit(f"unknown config key {key!r}")
         setattr(cfg.train, key, _coerce(value, _FIELD_TYPES[key]))
     device = resolve_device(args.device)  # before anything is written: no GPU fails fast
+    # under torchrun: join the group (unless the caller has); each process
+    # then takes its own GPU
+    joined = not torch.distributed.is_initialized() and init_distributed(device)
+    multi = process_shard()[1] > 1
+    device = local_device(device)
+    lead = is_lead_process()
     ex_dir = cfg.experiment_dir(args.ex)
     snapshot = ex_dir / "config.ini"
     existed = snapshot.exists()
+    barrier()  # every process decides fresh or resume before the lead writes
     if existed:
         # the snapshot governs a resumed experiment, as in the reference
-        if args.config is not None or args.set:
+        if lead and (args.config is not None or args.set):
             print(f"resuming {args.ex}: snapshot {snapshot} governs; "
                   "ignoring --config/--set overrides")
         cfg = load_config(snapshot)
@@ -142,7 +170,11 @@ def main(argv=None) -> int:
     # before the snapshot: a missing dataset writes nothing
     batches, norm = build_batches_and_norm(cfg, start_batch=resume_step)
     if not existed:
-        prepare_experiment_dir(cfg, args.ex)
+        if lead:
+            prepare_experiment_dir(cfg, args.ex)
+        if multi:  # every process trains the snapshot the lead wrote
+            barrier()
+            cfg = load_config(snapshot)
     if args.debug:
         # Run-mode clamp only, applied after the snapshot so a --debug run
         # does not bake tiny iteration counts into it.
@@ -152,12 +184,16 @@ def main(argv=None) -> int:
 
     trainer = Trainer(cfg, ex_dir, batches, normalization=norm, device=device,
                       eval_fn=build_eval_fn(cfg, norm, device))
-    print(f"experiment {args.ex}: step {trainer.step} -> {cfg.train.num_iters}")
+    if lead:
+        print(f"experiment {args.ex}: step {trainer.step} -> {cfg.train.num_iters}"
+              + (f" on {process_shard()[1]} processes" if multi else ""))
     logs = trainer.run()
-    if "loss" in logs:
+    if lead and "loss" in logs:
         print(f"done at step {trainer.step}: loss={logs['loss']:.5g}")
-    else:
+    elif lead:
         print(f"already complete at step {trainer.step}")
+    if joined:
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -23,8 +23,9 @@ to ``torch``/``cuda`` --, ``max_displacement``, ``corr_stride``), the input
 ranges ``aug_translate``, ``aug_rotate``, ``aug_zoom_min``,
 ``aug_zoom_max``, ``aug_rel_*``). ``conv_impl``, ``deconv_impl`` and
 ``remat`` select XLA lowerings on the TPU; they are accepted and ignored.
-Several devices (``num_devices`` > 1, ``spatial_shards`` > 1) are not
-ported yet and make the trainer raise.
+``num_devices`` is 0 (as many GPUs as ``torchrun`` started processes) or
+that number (``parallel/``); ``spatial_shards`` > 1 (W-sharding) is not
+ported yet (ROADMAP A16) and makes the trainer raise.
 """
 
 from __future__ import annotations

@@ -70,8 +70,10 @@ class PairDataset:
     def _require(self, path: Path, hint: str) -> Path:
         if not path.exists():
             raise FileNotFoundError(
-                f"{self.name}: expected {path}; place the dataset there (a "
-                f"download command is not ported yet: ROADMAP item A13). {hint}"
+                f"{self.name}: expected {path}. Fetch it with "
+                f"`python -m unflow_tpu_torch.cli.download {self.name} "
+                f"--data-dir {self.data_dir}` (unflow_tpu_torch.data.bootstrap), "
+                f"or place it there manually. {hint}"
             )
         return path
 
@@ -244,9 +246,8 @@ class Loader:
         self.loop = loop
         self.mode = mode
         self.image_dtype = image_dtype
-        # Sharding across processes (several devices are ROADMAP item A13,
-        # so the default (0, 1) is the only one used yet): every process runs
-        # the SAME per-epoch shuffle (same seed), forms global batches of
+        # Sharding across processes (cli.train passes parallel.process_shard()):
+        # every process runs the SAME per-epoch shuffle (same seed), forms global batches of
         # batch_size * shard_count, and decodes only its contiguous slice
         # — so the union across hosts is exactly the single-host stream
         # and resume stays deterministic.

@@ -1,7 +1,10 @@
-"""Flow-format and image IO (PIL + numpy).
+"""Flow-format and image IO (PIL + numpy, or the native C++ decoder).
 
-Copy of ``unflow_tpu/data/io.py`` without its optional native decoder.
-Formats:
+Copy of ``unflow_tpu/data/io.py``. With ``UNFLOW_NATIVE=1``, 8-bit PNG frames
+(``read_image``) and KITTI flow PNGs (``read_kitti_png_flow``) are decoded by
+the C++ sidecar (``data/native``, built with g++ at first use; bit-identical
+to the PIL / numpy path); if it cannot be built, the read raises with the
+compiler's output. Formats:
   * ``.flo`` (Middlebury/Sintel/FlyingChairs): TAG float 202021.25
     ("PIEH"), int32 width/height, float32 (u, v) interleaved.
   * KITTI 16-bit PNG flow: channels (u, v, valid) with
@@ -10,6 +13,7 @@ Formats:
 
 from __future__ import annotations
 
+import os
 import struct
 from pathlib import Path
 
@@ -21,8 +25,23 @@ from unflow_tpu_torch.data.png16 import read_png16, write_png16
 FLO_TAG = 202021.25
 
 
+def _native():
+    """The C++ decode sidecar when ``UNFLOW_NATIVE=1``, else None. Asked for
+    and not buildable, it raises (``native.NativeCompileError``)."""
+    if os.environ.get("UNFLOW_NATIVE", "0") != "1":
+        return None
+    from unflow_tpu_torch.data import native
+
+    native.load()
+    return native
+
+
 def read_image(path: str | Path) -> np.ndarray:
-    """Decode an image to float32 RGB in [0, 1], (H, W, 3)."""
+    """Decode an image to float32 RGB in [0, 1], (H, W, 3); PNGs through the
+    native decoder when ``UNFLOW_NATIVE=1``."""
+    native = _native() if str(path).endswith(".png") else None
+    if native is not None:
+        return native.decode_rgb(path)
     with Image.open(str(path)) as img:
         return np.asarray(img.convert("RGB"), np.float32) / 255.0
 
@@ -65,8 +84,12 @@ def read_kitti_png_flow(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
     """KITTI 16-bit PNG -> ((H, W, 2) flow, (H, W, 1) valid mask).
 
     Pillow truncates 16-bit RGB PNGs to 8 bits, so this uses the numpy
-    codec of :mod:`unflow_tpu_torch.data.png16`.
+    codec of :mod:`unflow_tpu_torch.data.png16`, or the native decoder when
+    ``UNFLOW_NATIVE=1``.
     """
+    native = _native()
+    if native is not None:
+        return native.decode_kitti_flow(path)
     arr = read_png16(path)
     if arr.ndim != 3 or arr.shape[-1] < 3:
         raise ValueError(f"{path}: expected 3-channel 16-bit PNG, got {arr.shape}")

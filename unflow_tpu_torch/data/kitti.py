@@ -1,8 +1,8 @@
 """KITTI datasets: raw drives (unsupervised) and 2012/2015 (eval/GT).
 
-A copy of ``unflow_tpu/data/kitti.py``, with the paper recipe's list of
-KITTI raw drives (copied from ``unflow_tpu/data/bootstrap.py``) that the
-partial-corpus warning counts.
+A copy of ``unflow_tpu/data/kitti.py``; the paper recipe's list of KITTI raw
+drives, which the partial-corpus warning counts, is the bootstrap
+manifest's (``data/bootstrap.py``).
 
 Reference: simonmeister/UnFlow ``src/e2eflow/kitti/data.py::KITTIData``
 and ``src/e2eflow/kitti/input.py::KITTIInput`` (``input_raw``,
@@ -19,87 +19,16 @@ from __future__ import annotations
 
 from pathlib import Path
 
+from unflow_tpu_torch.data import bootstrap
 from unflow_tpu_torch.data.base import Example, PairDataset
 
 # Reference KITTI normalization constants ([MED] recollection).
 KITTI_MEAN = (96.81, 98.83, 94.48)
 KITTI_STDDEV = 60.0
 
-# The paper recipe's KITTI raw drives (city, residential, road), by
-# category; a corpus on disk with fewer than three quarters of them warns.
-_KITTI_RAW_DRIVES_BY_CATEGORY: dict[str, tuple[str, ...]] = {
-    "city": (
-        "2011_09_26_drive_0001",
-        "2011_09_26_drive_0002",
-        "2011_09_26_drive_0005",
-        "2011_09_26_drive_0009",
-        "2011_09_26_drive_0011",
-        "2011_09_26_drive_0013",
-        "2011_09_26_drive_0014",
-        "2011_09_26_drive_0017",
-        "2011_09_26_drive_0018",
-        "2011_09_26_drive_0048",
-        "2011_09_26_drive_0051",
-        "2011_09_26_drive_0056",
-        "2011_09_26_drive_0057",
-        "2011_09_26_drive_0059",
-        "2011_09_26_drive_0060",
-        "2011_09_26_drive_0084",
-        "2011_09_26_drive_0091",
-        "2011_09_26_drive_0093",
-        "2011_09_26_drive_0095",
-        "2011_09_26_drive_0096",
-        "2011_09_26_drive_0104",
-        "2011_09_26_drive_0106",
-        "2011_09_26_drive_0113",
-        "2011_09_26_drive_0117",
-        "2011_09_28_drive_0001",
-        "2011_09_28_drive_0002",
-        "2011_09_29_drive_0026",
-        "2011_09_29_drive_0071",
-    ),
-    "residential": (
-        "2011_09_26_drive_0019",
-        "2011_09_26_drive_0020",
-        "2011_09_26_drive_0022",
-        "2011_09_26_drive_0023",
-        "2011_09_26_drive_0035",
-        "2011_09_26_drive_0036",
-        "2011_09_26_drive_0039",
-        "2011_09_26_drive_0046",
-        "2011_09_26_drive_0061",
-        "2011_09_26_drive_0064",
-        "2011_09_26_drive_0079",
-        "2011_09_26_drive_0086",
-        "2011_09_26_drive_0087",
-        "2011_09_30_drive_0018",
-        "2011_09_30_drive_0020",
-        "2011_09_30_drive_0027",
-        "2011_09_30_drive_0028",
-        "2011_09_30_drive_0033",
-        "2011_09_30_drive_0034",
-        "2011_10_03_drive_0027",
-        "2011_10_03_drive_0034",
-    ),
-    "road": (
-        "2011_09_26_drive_0015",
-        "2011_09_26_drive_0027",
-        "2011_09_26_drive_0028",
-        "2011_09_26_drive_0029",
-        "2011_09_26_drive_0032",
-        "2011_09_26_drive_0052",
-        "2011_09_26_drive_0070",
-        "2011_09_26_drive_0101",
-        "2011_09_29_drive_0004",
-        "2011_09_30_drive_0016",
-        "2011_10_03_drive_0042",
-        "2011_10_03_drive_0047",
-    ),
-}
-
-_KITTI_RAW_DRIVES = tuple(
-    d for drives in _KITTI_RAW_DRIVES_BY_CATEGORY.values() for d in drives
-)
+# The paper recipe's KITTI raw drives (the bootstrap manifest's); a corpus
+# on disk with fewer than three quarters of them warns.
+_KITTI_RAW_DRIVES = bootstrap._KITTI_RAW_DRIVES
 
 
 class KITTIRaw(PairDataset):
@@ -178,9 +107,9 @@ class KITTIRaw(PairDataset):
                 f"KITTIRaw: only {len(expected) - len(missing)} of "
                 f"{len(expected)} paper-recipe drives present under {root} "
                 f"(missing e.g. {sorted(missing)[:3]}). Training on a "
-                "partial corpus degrades accuracy; fetch the full "
-                "city/residential/road set (a download command is not "
-                "ported yet: ROADMAP item A13).",
+                "partial corpus degrades accuracy; run "
+                "`python -m unflow_tpu_torch.cli.download kitti_raw` "
+                "for the full city/residential/road set.",
                 stacklevel=3,
             )
 

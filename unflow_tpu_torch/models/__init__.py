@@ -18,10 +18,11 @@ from unflow_tpu_torch.ops import impl_from_config
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def build_model(cfg: Config, device: torch.device | str) -> FlowNetStack:
+def build_model(cfg: Config, device: torch.device | str | None) -> FlowNetStack:
     """The network of ``cfg`` (port of ``unflow_tpu/train/trainer.py::
     build_model``): the stack of ``flownet``, float32 parameters in
-    channels_last memory on ``device``."""
+    channels_last memory on ``device`` (``None``: as constructed, on the
+    default device, for tracing under fake tensors)."""
     t = cfg.train
     model = FlowNetStack(
         spec=t.flownet,
@@ -30,6 +31,8 @@ def build_model(cfg: Config, device: torch.device | str) -> FlowNetStack:
         max_displacement=t.max_displacement,
         corr_stride=t.corr_stride,
     )
+    if device is None:
+        return model
     return model.to(device=device, memory_format=torch.channels_last)
 
 

@@ -14,8 +14,16 @@ stages of a fresh experiment from the ``finetune`` experiments, resumes an
 experiment from its latest checkpoint, saves every ``save_interval``
 steps (``train/checkpoint.py``), given an ``eval_fn`` evaluates every
 ``eval_interval`` steps, writes image summaries and, with ``tensorboard``,
-mirrors its logs into a tfevents file. Several devices are not ported yet
-(ROADMAP A13).
+mirrors its logs into a tfevents file.
+
+Under ``torchrun`` (one process per GPU, ``parallel/``) each process trains
+on its rows of the global batch, draws the augmentation of the whole global
+batch and keeps its own rows (so that the processes draw what one process
+would), and ``DistributedDataParallel`` averages the gradients; the losses
+are means over equal-size local batches, so the average is the gradient of
+the global batch. The lead process alone writes metrics (averaged over the
+processes), tensorboard and checkpoints; image summaries are off. W-sharding
+(``spatial_shards``) is not ported yet (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -44,6 +52,13 @@ from unflow_tpu_torch.data import DEFAULT_NORMALIZATION
 from unflow_tpu_torch.device import resolve_device
 from unflow_tpu_torch.losses import supervised_loss, unsupervised_loss
 from unflow_tpu_torch.models import FlowNetStack, build_model, init_params
+from unflow_tpu_torch.parallel import (
+    barrier,
+    check_num_devices,
+    is_lead_process,
+    process_shard,
+    wrap_model,
+)
 from unflow_tpu_torch.train.checkpoint import CheckpointManager, init_stages_from
 from unflow_tpu_torch.train.schedule import piecewise_halving
 from unflow_tpu_torch.train.summaries import ImageSummaryWriter
@@ -53,9 +68,11 @@ from unflow_tpu_torch.utils import MetricsLogger
 @dataclasses.dataclass
 class TrainState:
     """What a train step updates in place: the parameters (float32, in the
-    model), Adam's moments (in the optimizer) and the host-side step count."""
+    model), Adam's moments (in the optimizer) and the host-side step count.
+    ``model`` is what the step calls: the network, or under several
+    processes its ``DistributedDataParallel`` wrapper."""
 
-    model: FlowNetStack
+    model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
 
@@ -76,10 +93,23 @@ def build_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.Adam:
 
 
 def _check_ported(cfg: Config) -> None:
-    """Raise for config keys that ask for a part the port lacks."""
+    """Raise for config keys that ask for a part the port lacks, or for a
+    ``num_devices`` other than the processes of this run."""
     t = cfg.train
-    if t.num_devices > 1 or t.spatial_shards > 1:
-        raise NotImplementedError("training on several devices is not ported yet: ROADMAP item A13")
+    if t.spatial_shards > 1:
+        raise NotImplementedError("W-sharding (spatial_shards > 1) is not ported yet: "
+                                  "ROADMAP item A16")
+    check_num_devices(t.num_devices)
+
+
+def freeze_stages(model: FlowNetStack, spec: str) -> None:
+    """A lowercase stage of ``spec`` is frozen: no gradient, no optimizer
+    state, no part in the gradient average."""
+    for i, ch in enumerate(spec):
+        if ch.islower():
+            for name, p in model.named_parameters():
+                if name.startswith(f"stage{i}_"):
+                    p.requires_grad_(False)
 
 
 def affine_ranges(cfg: Config) -> dict | None:
@@ -105,10 +135,22 @@ def _step_seed(seed: int, step: int) -> int:
     return (seed * 1_000_003 + step) % (2**63)
 
 
+def _rows(params, lo: int, hi: int):
+    """Rows ``lo:hi`` of every per-example tensor of a parameter set."""
+    if isinstance(params, torch.Tensor):
+        return params[lo:hi]
+    if isinstance(params, dict):
+        return {k: _rows(v, lo, hi) for k, v in params.items()}
+    if hasattr(params, "_fields"):  # a NamedTuple
+        return type(params)(*(_rows(v, lo, hi) for v in params))
+    return [_rows(v, lo, hi) for v in params]
+
+
 def make_train_step(
     cfg: Config,
     normalization=DEFAULT_NORMALIZATION,
     draws: Callable[[int], dict] | None = None,
+    shard: tuple[int, int] | None = None,
 ) -> Callable[[TrainState, dict], dict]:
     """Returns ``train_step(state, batch) -> logs``.
 
@@ -124,8 +166,15 @@ def make_train_step(
     parameters by name (``swap``, ``affine``, ``crop_flip``,
     ``photometric``, in the layout of the ``sample_*_params`` functions),
     which the step then uses in place of its own draws.
+
+    ``shard`` is ``(rank, processes)`` (by default this process's, from
+    ``parallel``): ``batch`` is then this process's rows of a global batch
+    of ``B x processes`` pairs, the per-example draws (and those ``draws``
+    returns) are of the global batch, and the step keeps rows ``rank x B``
+    to ``(rank + 1) x B`` of them.
     """
     _check_ported(cfg)
+    rank, processes = shard if shard is not None else process_shard()
     t = cfg.train
     if t.aug_swap_prob and t.supervised:
         # swapping the frames inverts the motion, and ground truth has one
@@ -157,11 +206,12 @@ def make_train_step(
 
         im1, im2 = as_float(batch["im1"]), as_float(batch["im2"])
         b, h, w = im1.shape[:3]
+        lo, hi = rank * b, (rank + 1) * b  # this process's rows of the global draws
         if t.aug_swap_prob:
             swap = given.get("swap")
             if swap is None:
-                swap = sample_order_swap_params(generator, b, t.aug_swap_prob)
-            im1, im2 = apply_order_swap(im1, im2, swap)
+                swap = sample_order_swap_params(generator, b * processes, t.aug_swap_prob)
+            im1, im2 = apply_order_swap(im1, im2, _rows(swap, lo, hi))
         gt = [batch["flow"]] if t.supervised else None
         masks = [batch["mask"]] if t.supervised and "mask" in batch else None
         if ranges is not None:
@@ -170,8 +220,8 @@ def make_train_step(
             # frame
             params = given.get("affine")
             if params is None:
-                params = sample_affine_params(generator, b, (h, w), **ranges)
-            (im1, im2), gt, masks = apply_affine(params, [im1, im2], gt, masks)
+                params = sample_affine_params(generator, b * processes, (h, w), **ranges)
+            (im1, im2), gt, masks = apply_affine(_rows(params, lo, hi), [im1, im2], gt, masks)
         # the mask rides the image list: one crop/flip draw for all
         params = given.get("crop_flip")
         if params is None:
@@ -184,8 +234,9 @@ def make_train_step(
         if t.aug_photometric:
             params = given.get("photometric")
             if params is None:
-                params = sample_photometric_params(generator, im1.shape, 2, t.aug_noise_stddev)
-            p1, p2 = apply_photometric([im1, im2], params)
+                params = sample_photometric_params(
+                    generator, (b * processes, *im1.shape[1:]), 2, t.aug_noise_stddev)
+            p1, p2 = apply_photometric([im1, im2], _rows(params, lo, hi))
         else:
             p1, p2 = im1, im2
         n1 = nchw(normalize(p1, mean, stddev))
@@ -274,6 +325,14 @@ class Trainer:
     never) under ``<exp_dir>/summaries/``; with ``tensorboard`` the logs,
     evaluations and images also go to a tfevents file under
     ``<exp_dir>/tb/``.
+
+    Under several processes (``torchrun``; ``device`` is then this
+    process's GPU) every process restores the checkpoint, the model is
+    wrapped in ``DistributedDataParallel`` after the freeze and the restore,
+    and the lead alone writes ``metrics.jsonl``, tensorboard and
+    checkpoints and evaluates (on the unwrapped model) while the others
+    wait; the logs are averaged over the processes at each display step,
+    and image summaries are off, as in the JAX package.
     """
 
     def __init__(
@@ -308,33 +367,36 @@ class Trainer:
             model.load_state_dict(init_stages_from(model.state_dict(), finetune_dirs))
         # before the optimizer is built, which restores Adam's state by
         # parameter order
-        for i, ch in enumerate(t.flownet):
-            if ch.islower():  # a frozen stage: no gradient, no optimizer state
-                for name, p in model.named_parameters():
-                    if name.startswith(f"stage{i}_"):
-                        p.requires_grad_(False)
+        freeze_stages(model, t.flownet)
         model = model.to(device=self.device, memory_format=torch.channels_last).train()
         self.state = TrainState(model, build_optimizer(cfg, model))
-        if latest is not None:
+        if latest is not None:  # every process restores
             self.state.step = self.ckpt.restore(model, self.state.optimizer)
-        self.logger = MetricsLogger(self.exp_dir)
+        self._model = model
+        self.state.model = wrap_model(model, self.device)
+        self._processes = process_shard()[1]
+        self._lead = is_lead_process()
+        self.logger = MetricsLogger(self.exp_dir) if self._lead else None
         self.eval_fn = eval_fn
         self._tb = None
-        if t.tensorboard:
+        if t.tensorboard and self._lead:
             from unflow_tpu_torch.utils.tensorboard import EventWriter
 
             self._tb = EventWriter(self.exp_dir / "tb")
         self._summary_interval = (
             t.display_interval if t.image_summary_interval == 0 else t.image_summary_interval
         )
+        # several processes: no image summaries (the lead's forward alone
+        # would see one slice of the batch), as in the JAX package
         self._summaries = (
             ImageSummaryWriter(self.exp_dir, normalization, event_writer=self._tb)
-            if self._summary_interval > 0 else None
+            if self._summary_interval > 0 and self._processes == 1 else None
         )
 
     @property
     def model(self) -> FlowNetStack:
-        return self.state.model
+        """The network (unwrapped under several processes)."""
+        return self._model
 
     @property
     def step(self) -> int:
@@ -362,14 +424,31 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     def save(self) -> None:
-        """Checkpoint the model, the optimizer and the step."""
-        self.ckpt.save(self.state.step, self.state.model, self.state.optimizer)
+        """Checkpoint the model, the optimizer and the step (the lead
+        process writes; every process returns once it is written)."""
+        if self._lead:
+            self.ckpt.save(self.state.step, self.model, self.state.optimizer)
+        barrier()
+
+    def _global_logs(self, logs: dict) -> dict:
+        """The logs as floats; under several processes the loss terms are
+        averaged over them (each is a mean over equal-size local batches, so
+        this is the global batch's), in one all-reduce. ``grad_norm`` (of the
+        averaged gradients) and ``lr`` are the same on every process."""
+        if self._processes == 1:
+            return {k: float(v) for k, v in logs.items()}
+        keys = [k for k in logs if k not in ("grad_norm", "lr")]
+        values = torch.stack([logs[k].float() for k in keys])
+        torch.distributed.all_reduce(values)
+        record = {k: float(v) for k, v in zip(keys, values / self._processes)}
+        record.update({k: float(logs[k]) for k in ("grad_norm", "lr")})
+        return record
 
     def run(self, max_iters: int | None = None) -> dict:
         """Train until ``cfg.train.num_iters`` (or ``max_iters``),
         checkpointing every ``save_interval`` steps and at the end. Returns
-        the last step's logs as floats. Rerunning on the same experiment
-        resumes from its latest checkpoint.
+        the last step's logs as floats (averaged over the processes).
+        Rerunning on the same experiment resumes from its latest checkpoint.
 
         The step count lives on the host and no value is read back from the
         device between display intervals, so steps queue up on the device.
@@ -382,19 +461,21 @@ class Trainer:
         t = self.cfg.train
         target = min(max_iters or t.num_iters, t.num_iters)
         logs: dict = {}
+        record: dict = {}
         pairs_accum, t_last, pause_s = 0, time.perf_counter(), 0.0
         while self.state.step < target:
             batch = next(self.batches)
             logs = self.train_step(batch)
-            batch_size = batch["im1"].shape[0]
+            batch_size = batch["im1"].shape[0] * self._processes  # the global batch
             pairs_accum += batch_size
             if self.state.step % t.display_interval == 0:
-                record = {k: float(v) for k, v in logs.items()}  # waits for the device
+                record = self._global_logs(logs)  # waits for the device
                 now = time.perf_counter()
                 work_s = max(now - t_last - pause_s, 1e-9)
                 record["pairs_per_sec"] = pairs_accum / work_s
                 record["step_ms"] = 1e3 * work_s / max(pairs_accum / max(batch_size, 1), 1)
-                self.logger.log(self.state.step, record)
+                if self._lead:
+                    self.logger.log(self.state.step, record)
                 if self._tb is not None:
                     self._tb.scalars(record, self.state.step)
                     self._tb.flush()
@@ -403,17 +484,19 @@ class Trainer:
             if self._summaries is not None and self.state.step % self._summary_interval == 0:
                 self._sync()
                 t0 = time.perf_counter()
-                self._summaries.write(self.state.step, self.state.model, batch)
+                self._summaries.write(self.state.step, self.model, batch)
                 pause_s += time.perf_counter() - t0
             if self.eval_fn is not None and t.eval_interval and self.state.step % t.eval_interval == 0:
                 self._sync()
                 t0 = time.perf_counter()
-                metrics = self.eval_fn(self.state.model)
-                eval_record = {f"eval/{k}": v for k, v in metrics.items()}
-                self.logger.log(self.state.step, eval_record)
-                if self._tb is not None:
-                    self._tb.scalars(eval_record, self.state.step)
-                    self._tb.flush()
+                if self._lead:  # on the unwrapped model: its forward is no collective
+                    metrics = self.eval_fn(self.model)
+                    eval_record = {f"eval/{k}": v for k, v in metrics.items()}
+                    self.logger.log(self.state.step, eval_record)
+                    if self._tb is not None:
+                        self._tb.scalars(eval_record, self.state.step)
+                        self._tb.flush()
+                barrier()
                 pause_s += time.perf_counter() - t0
             if self.state.step % t.save_interval == 0 or self.state.step >= target:
                 self._sync()
@@ -422,4 +505,6 @@ class Trainer:
                 pause_s += time.perf_counter() - t0
         if self.ckpt.latest_step() != self.state.step:
             self.save()
-        return {k: float(v) for k, v in logs.items()}
+        if logs and self.state.step % t.display_interval:  # not read at a display step
+            record = self._global_logs(logs)
+        return {k: record[k] for k in logs}
