@@ -14,7 +14,9 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 version on the card (tolerance 1e-5 * max|ref| in float32, 0.02 *
                 max|ref| in bfloat16), at the training geometry (16, 40, 144,
                 256), the eval geometry (4, 48, 160, 256), the held-out run's
-                (16, 16, 32, 256), all with max_displacement 20 and stride 2, an
+                (16, 16, 32, 256), the supervised and affine paths', the W-sharded
+                slabs with their halos (16 and 8, 40, 112, 256), all with
+                max_displacement 20 and stride 2, an
                 odd case (W a multiple of no tile, stride 1), and the training
                 geometry with stride 4,
                 which the dispatch sends to the FP32-core kernels' run-time
@@ -155,13 +157,24 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 against its plain twin; a 2-rank csS run resumed at step 2
                 identical to the uninterrupted one; step_ms and pairs/s of one
                 and two ranks.
- 18. flops   -- ``utils/flops.py``'s count of the UnFlow-C bf16 step at 320x1152,
+ 18. spatial -- W-sharding: ``cli.train --set spatial_shards=2`` under ``torchrun`` on the
+                packed KITTI raw tree (configs/kitti_unsup_c.ini, 320x1152, global
+                batch 8, a W-slab of 576 columns a rank). Two spatial ranks (one per
+                card over NCCL with two cards, else both on one card over gloo):
+                bf16 4 steps, one bf16 and one f32 step (TF32 off, cuDNN
+                deterministic), held against phase 17's one-rank runs; one csS and
+                one ``disocc`` bf16 step against the same steps in this process; the
+                2x2 grid (4 ranks, one card over gloo with fewer than 4 cards), one
+                f32 step against one rank. Limits 2e-2 in bf16, 1e-4 in f32 on the
+                losses, the one-step gradient and the parameters; each rank's peak
+                memory beside one rank's, step_ms and the launches are printed.
+ 19. flops   -- ``utils/flops.py``'s count of the UnFlow-C bf16 step at 320x1152,
                 batch 8 (as the JAX package counts it), and the MFU of phase 4's
                 step against ``peak_flops()`` (none for an unknown card).
- 19. profile hooks -- ``utils.profiling.trace`` around two bf16 train steps: the
+ 20. profile hooks -- ``utils.profiling.trace`` around two bf16 train steps: the
                 trace reads back and names the three tensor-core kernels;
                 ``StepTimer``'s rate beside phase 4's pairs/s.
- 20. native decode -- ``UNFLOW_NATIVE=1``: the C++ sidecar builds into
+ 21. native decode -- ``UNFLOW_NATIVE=1``: the C++ sidecar builds into
                 ``_build/``; the KITTI trees' frames and 16-bit flows and a
                 ``Loader`` epoch equal the PIL / numpy path's bit for bit.
 
@@ -253,6 +266,11 @@ KERNEL_CASES = [
     # configs/chairs_supervised.ini as FlowNetC: 384x512, batch 8, one direction
     ("supervised", (8, 48, 64, 256), 20, 2),
     ("affine", (16, 64, 96, 256), 20, 2),  # configs/synthia_pretrain_c_affine.ini: 512x768
+    # W-sharding, spatial_shards = 2 (run_spatial): a rank's conv3 slab of 72
+    # columns with the correlation's halo of 20 on each side; 320x1152 at
+    # batch 8 on one data rank, and 4 pairs a data rank on the 2x2 grid
+    ("spatial2", (16, 40, 112, 256), 20, 2),
+    ("spatial2x2", (8, 40, 112, 256), 20, 2),
 ]
 
 
@@ -1437,22 +1455,24 @@ def ddp_worker(spec_path: str) -> int:
                               _dir=f"{spec['out']}_{job['name']}_rank{rank}":
                               profiled(self, batch, _at, _dir)) if "profile_step" in job else train_step
         reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         rc = train_main(job["argv"])
         torch.cuda.synchronize()
         results.append({"name": job["name"], "rc": rc, "seconds": time.perf_counter() - t,
-                        "launches": {k: v for k, v in launch_counts().items() if v}})
+                        "launches": {k: v for k, v in launch_counts().items() if v},
+                        "peak_mib": torch.cuda.max_memory_allocated() / 2**20})
     Path(f"{spec['out']}.{rank}").write_text(json.dumps(results))
     torch.distributed.destroy_process_group()
     return 0
 
 
 def run_torchrun(tmp: Path, nproc: int, jobs: list[dict], device: str,
-                 backend: str | None) -> list[list[dict]]:
+                 backend: str | None, tag: str = "") -> list[list[dict]]:
     """``torchrun --nproc-per-node nproc chip_smoke.py --ddp-worker``: each
     rank's results of ``jobs``."""
-    out = tmp / f"torchrun_{nproc}"
-    spec = tmp / f"torchrun_{nproc}.json"
+    out = tmp / f"torchrun_{tag}{nproc}"
+    spec = tmp / f"torchrun_{tag}{nproc}.json"
     spec.write_text(json.dumps({"device": device, "backend": backend, "jobs": jobs,
                                 "out": str(out)}))
     with socket.socket() as sock:
@@ -1463,7 +1483,7 @@ def run_torchrun(tmp: Path, nproc: int, jobs: list[dict], device: str,
            str(ROOT / "chip_smoke.py"), "--ddp-worker", str(spec)]
     t = time.perf_counter()
     proc = subprocess.run(cmd, cwd=tmp, capture_output=True, text=True, timeout=900)
-    print(f"torchrun --nproc-per-node {nproc} ({backend or 'nccl'}, --device {device}): "
+    print(f"torchrun --nproc-per-node {nproc} ({backend or 'nccl'}, --device {device}) {tag}: "
           f"rc {proc.returncode} {time.perf_counter() - t:.2f} s", flush=True)
     if proc.returncode != 0:
         raise AssertionError(f"torchrun failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
@@ -1496,6 +1516,18 @@ def allreduce_in_trace(path: Path) -> str:
             f"(ends {(end - b1) / 1e3:.3f} ms before the step does); {rows or 'no all-reduce'}")
 
 
+def collective_time(path: Path) -> str:
+    """A profiled step's all-reduce calls (each a dispatch of
+    ``c10d::allreduce_``) and the device's busy time beside the step's span."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    calls = sum(e["name"] == "c10d::allreduce_" for e in events)
+    busy = sum(e["dur"] for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return (f"{calls} all_reduce calls; device busy {busy / 1e3:.3f} ms of the step's "
+            f"{span / 1e3:.3f} ms")
+
+
 def _records(tmp: Path, ex: str) -> list[dict]:
     return [json.loads(line) for line in
             (tmp / "log" / "ex" / ex / "metrics.jsonl").read_text().splitlines()]
@@ -1512,7 +1544,38 @@ def _param_gap(mine: dict, ref: dict) -> float:
     return (num / sum(torch.sum(v.double() ** 2).item() for v in ref.values())) ** 0.5
 
 
-def run_distributed(tmp: Path) -> dict[str, dict[str, int]]:
+def hold_run(tmp: Path, label: str, mine: str, ref: str, steps: int, tol: float,
+             start: dict | None = None) -> None:
+    """The run of experiment ``mine`` against the run of ``ref`` from the same
+    config: one ``metrics.jsonl`` record a step; the losses, the parameters'
+    relative L2 (and, given the init ``start``, their updates') and for one
+    step Adam's first moment (0.1 x the gradient) within ``tol``."""
+    a, b = _records(tmp, ref), _records(tmp, mine)
+    if not [r["step"] for r in a] == [r["step"] for r in b] == list(range(1, steps + 1)):
+        raise AssertionError(f"{label}: metrics.jsonl has not one record per step: {b}")
+    gaps = [abs(x["loss"] - y["loss"]) / abs(x["loss"]) for x, y in zip(a, b)]
+    ck1, ck2 = (_checkpoint(tmp, ex, steps) for ex in (ref, mine))
+    params = _param_gap(ck2["model"], ck1["model"])
+    line = (f"{label}: losses of steps 1-{steps} {[round(r['loss'], 5) for r in b]} vs "
+            f"{[round(r['loss'], 5) for r in a]} (relative gaps {[f'{g:.2e}' for g in gaps]}); "
+            f"parameters' relative L2 gap {params:.3e}")
+    if start is not None:
+        updates = _param_gap(*({k: ck["model"][k] - v for k, v in start.items()}
+                               for ck in (ck2, ck1)))
+        line += f", their updates' {updates:.3e}"
+    grad = 0.0
+    if steps == 1:  # Adam's first moment after one step: 0.1 x the averaged gradient
+        moments = [[s["exp_avg"] for s in ck["optimizer"]["state"].values()]
+                   for ck in (ck2, ck1)]
+        grad = _param_gap(dict(enumerate(moments[0])), dict(enumerate(moments[1])))
+        line += (f"; gradient relative L2 gap {grad:.3e}, grad_norm {b[0]['grad_norm']:.6g}"
+                 f" vs {a[0]['grad_norm']:.6g}")
+    print(f"{line} (tolerance {tol} on each)", flush=True)
+    if max(gaps) > tol or grad > tol or params > tol:
+        raise AssertionError(f"{label}: {mine} does not follow {ref}")
+
+
+def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dict]]:
     """The data-parallel path: ``cli.train`` under ``torchrun`` on the packed
     KITTI raw tree (configs/kitti_unsup_c.ini, 320x1152, global batch 8).
     One rank over NCCL: bf16 for ``DDP_STEPS`` steps, then one step each in
@@ -1522,9 +1585,9 @@ def run_distributed(tmp: Path) -> dict[str, dict[str, int]]:
     (the same config, so the same init and batches); then csS (cuDNN
     deterministic) four steps uninterrupted and as two segments cut at step
     2, which must agree bit for bit. Returns the launch counts of each run,
-    summed over its ranks."""
-    from unflow_tpu_torch.config import load_config
-    from unflow_tpu_torch.models import DTYPES, build_model, init_params
+    summed over its ranks, and the one-rank runs' results by name (their
+    experiments stay, as ``run_spatial``'s references)."""
+    from unflow_tpu_torch.models import DTYPES
     from unflow_tpu_torch.ops.cuda.correlation import kernel_name
 
     cards = torch.cuda.device_count()
@@ -1566,7 +1629,8 @@ def run_distributed(tmp: Path) -> dict[str, dict[str, int]]:
             per_rank = [r[i]["launches"] for r in results]
             total = {k: sum(c.get(k, 0) for c in per_rank) for k in per_rank[0]}
             print(f"distributed {ranks} rank(s) {res['name']}: rc {[r[i]['rc'] for r in results]} "
-                  f"launches per rank {per_rank} {res['seconds']:.2f} s", flush=True)
+                  f"launches per rank {per_rank} {res['seconds']:.2f} s, peak MiB per rank "
+                  f"{[round(r[i]['peak_mib'], 1) for r in results]}", flush=True)
             if any(r[i]["rc"] != 0 for r in results):
                 raise AssertionError(f"{res['name']} failed")
             if res["name"] in runs:
@@ -1578,34 +1642,10 @@ def run_distributed(tmp: Path) -> dict[str, dict[str, int]]:
                 paths[f"torchrun {ranks} rank(s), cli.train kitti_raw packed {dtype}, "
                       f"{steps} step(s)"] = total
 
-    # both runs start from the config's seed: one init
-    model = build_model(load_config(ini), "cpu")
-    init_params(model, torch.Generator().manual_seed(base.train.seed))
-    start = model.state_dict()
+    start = config_init(ini)
     for name, tol in (("bf16", 2e-2), ("bf16_step", 2e-2), ("f32_step", 1e-4)):
-        steps = runs[name][1]
-        a, b = _records(tmp, f"ddp_{name}_1"), _records(tmp, f"ddp_{name}_2")
-        if not [r["step"] for r in a] == [r["step"] for r in b] == list(range(1, steps + 1)):
-            raise AssertionError(f"ddp {name}: metrics.jsonl has not one record per step: {b}")
-        gaps = [abs(x["loss"] - y["loss"]) / abs(x["loss"]) for x, y in zip(a, b)]
-        ck1, ck2 = (_checkpoint(tmp, f"ddp_{name}_{r}", steps) for r in (1, 2))
-        params = _param_gap(ck2["model"], ck1["model"])
-        updates = _param_gap(*({k: ck["model"][k] - v for k, v in start.items()}
-                               for ck in (ck2, ck1)))
-        line = (f"distributed {name}: 2 ranks against 1, global batch 8, losses of steps "
-                f"1-{steps} {[round(r['loss'], 5) for r in b]} vs {[round(r['loss'], 5) for r in a]}"
-                f" (relative gaps {[f'{g:.2e}' for g in gaps]}); parameters' relative L2 gap "
-                f"{params:.3e}, their updates' {updates:.3e}")
-        grad = 0.0
-        if steps == 1:  # Adam's first moment after one step: 0.1 x the averaged gradient
-            moments = [[s["exp_avg"] for s in ck["optimizer"]["state"].values()]
-                       for ck in (ck2, ck1)]
-            grad = _param_gap(dict(enumerate(moments[0])), dict(enumerate(moments[1])))
-            line += (f"; gradient relative L2 gap {grad:.3e}, grad_norm {b[0]['grad_norm']:.6g}"
-                     f" vs {a[0]['grad_norm']:.6g}")
-        print(f"{line} (tolerance {tol} on each)", flush=True)
-        if max(gaps) > tol or grad > tol or params > tol:
-            raise AssertionError(f"ddp {name}: 2 ranks do not follow 1")
+        hold_run(tmp, f"distributed {name}: 2 ranks against 1, global batch 8",
+                 f"ddp_{name}_2", f"ddp_{name}_1", runs[name][1], tol, start)
     for ranks in (1, 2):
         # after the first step's warm-up, before the profiled one
         rec = _records(tmp, f"ddp_bf16_{ranks}")[1:profile_step]
@@ -1629,9 +1669,133 @@ def run_distributed(tmp: Path) -> dict[str, dict[str, int]]:
           f"identical)", flush=True)
     if losses[0] != losses[1] or sorted(losses[0]) != [1, 2, 3, 4] or diff != 0:
         raise AssertionError("the resumed 2-rank csS run is not identical to the uninterrupted one")
-    for ex in [f"ddp_{n}_{r}" for n in runs for r in (1, 2)] + ["ddp_css_2", "ddp_css_split_2"]:
+    # the one-rank runs are run_spatial's references too
+    for ex in [f"ddp_{n}_2" for n in runs] + ["ddp_css_2", "ddp_css_split_2"]:
+        shutil.rmtree(tmp / "log" / "ex" / ex)
+    return paths, {res["name"]: res for res in one[0]}
+
+
+def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
+    """W-sharding (``spatial_shards=2``) through ``cli.train`` under
+    ``torchrun`` on the packed KITTI raw tree, configs/kitti_unsup_c.ini at
+    320x1152, global batch 8; each rank holds a W-slab of 576 columns. Two
+    spatial ranks (one per card over NCCL with two cards or more, else both
+    on one card over gloo): bf16 for ``DDP_STEPS`` steps, then one bf16 and
+    one f32 step (TF32 off, cuDNN deterministic), held against
+    ``run_distributed``'s one-rank runs of the same config (``one``); one csS
+    step (the glue's warps, the frozen stages) and one ``disocc`` step (the
+    splat) in bf16, held against the same steps in this process. Then the
+    2x2 grid (4 ranks: 2 data x 2 spatial; on one card over gloo with fewer
+    than 4 cards), one f32 step against the one-rank one. Limits: bf16 2e-2,
+    f32 1e-4, on the losses, the one-step gradient and the parameters. Prints
+    each rank's peak memory beside one rank's, step_ms and the launches.
+    Returns the launch counts of each run, summed over its ranks."""
+    from unflow_tpu_torch.cli.train import main as train_main
+    from unflow_tpu_torch.config import load_config
+    from unflow_tpu_torch.models import DTYPES
+    from unflow_tpu_torch.ops.cuda.correlation import (
+        kernel_name,
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    cards = torch.cuda.device_count()
+    ini, css_ini = tmp / "ddp_c.ini", tmp / "ddp_css.ini"  # run_distributed's configs
+    p = load_config(ini).train.max_displacement
+    # in this process: the one-rank references of csS and disocc
+    singles = {"css": (css_ini, {}), "disocc": (ini, {"mask_occlusion": "disocc"})}
+    for name, (config, extra) in singles.items():
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        argv = ["--config", str(config), "--ex", f"sp_{name}_1", "--set", "compute_dtype=bfloat16",
+                "--set", "num_iters=1", "--set", "save_interval=1"]
+        rc = train_main(argv + [x for k, v in extra.items() for x in ("--set", f"{k}={v}")])
+        torch.cuda.synchronize()
+        one[name] = {"name": name, "rc": rc, "seconds": time.perf_counter() - t,
+                     "launches": {k: v for k, v in launch_counts().items() if v},
+                     "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        if rc != 0:
+            raise AssertionError(f"one-rank {name} failed")
+
+    # the one-rank reference of each run: its experiment by name of ``one``
+    one_ex = {"bf16": "ddp_bf16_1", "bf16_step": "ddp_bf16_step_1",
+              "f32_step": "ddp_f32_step_1", "css": "sp_css_1", "disocc": "sp_disocc_1"}
+    # name -> (dtype, steps, deterministic, config, extra keys, ranks, reference)
+    runs = {"bf16": ("bfloat16", DDP_STEPS, False, ini, {}, 2, "bf16"),
+            "bf16_step": ("bfloat16", 1, False, ini, {}, 2, "bf16_step"),
+            "f32_step": ("float32", 1, True, ini, {}, 2, "f32_step"),
+            "css": ("bfloat16", 1, False, css_ini, {}, 2, "css"),
+            "disocc": ("bfloat16", 1, False, ini, {"mask_occlusion": "disocc"}, 2, "disocc"),
+            "f32_grid": ("float32", 1, True, ini, {}, 4, "f32_step")}
+
+    def job(name):
+        dtype, steps, deterministic, config, extra, ranks, _ = runs[name]
+        argv = ["--config", str(config), "--ex", f"sp_{name}_{ranks}", "--set",
+                f"compute_dtype={dtype}", "--set", f"num_iters={steps}", "--set",
+                f"save_interval={steps}", "--set", "spatial_shards=2",
+                "--device", "cuda" if cards >= ranks else "cuda:0"]
+        argv += [x for k, v in extra.items() for x in ("--set", f"{k}={v}")]
+        # the last step of the bf16 run, profiled (as run_distributed's)
+        profiled = {"profile_step": DDP_STEPS - 1} if name == "bf16" else {}
+        return {"name": name, "argv": argv, "deterministic": deterministic, **profiled}
+
+    results = {}
+    for ranks in (2, 4):
+        nccl = cards >= ranks
+        print(f"spatial: {ranks} ranks ({ranks // 2} data x 2 spatial) "
+              f"{f'on {ranks} cards over NCCL' if nccl else 'on one card over gloo'} "
+              f"({cards} card(s) visible)", flush=True)
+        out = run_torchrun(tmp, ranks, [job(n) for n, r in runs.items() if r[5] == ranks],
+                           "cuda" if nccl else "cuda:0", None if nccl else "gloo", tag="spatial")
+        for i, res in enumerate(out[0]):
+            results[res["name"]] = [r[i] for r in out]
+
+    paths = {}
+    start = config_init(ini)
+    for name, per_rank in results.items():
+        dtype, steps, _, config, extra, ranks, ref = runs[name]
+        counts = [r["launches"] for r in per_rank]
+        kernels = ["fwd"] if name == "css" else ["fwd", "bwd_f1", "bwd_f2"]
+        expected = {kernel_name(op, DTYPES[dtype], 256, p, 2): steps for op in kernels}
+        total = {k: sum(c.get(k, 0) for c in counts) for k in expected}
+        print(f"spatial {name} ({ranks} ranks): rc {[r['rc'] for r in per_rank]} launches per "
+              f"rank {counts} (summed {total}) {per_rank[0]['seconds']:.2f} s; peak MiB per rank "
+              f"{[round(r['peak_mib'], 1) for r in per_rank]} against one rank's "
+              f"{one[ref]['peak_mib']:.1f}", flush=True)
+        if any(r["rc"] != 0 for r in per_rank) or any(c != expected for c in counts):
+            raise AssertionError(f"spatial {name}: launches {counts}, want {expected} a rank")
+        paths[f"torchrun {ranks} ranks spatial_shards=2, cli.train kitti_raw packed {dtype}"
+              f"{' ' + config.stem if config != ini else ''}"
+              f"{''.join(f' {k}={v}' for k, v in extra.items())}, {steps} step(s)"] = total
+        hold_run(tmp, f"spatial {name}: {ranks // 2} data x 2 spatial against 1 rank",
+                 f"sp_{name}_{ranks}", one_ex[ref], steps, 2e-2 if dtype == "bfloat16" else 1e-4,
+                 None if name == "css" else start)
+    for ranks in (1, 2):
+        ex = "ddp_bf16_1" if ranks == 1 else "sp_bf16_2"
+        rec = _records(tmp, ex)[1:DDP_STEPS - 1]  # after the first step's warm-up
+        step_ms = statistics.mean(r["step_ms"] for r in rec)
+        print(f"spatial bf16 320x1152 global batch 8, {ranks} rank(s) "
+              f"{'(spatial_shards=2)' if ranks == 2 else ''}: step_ms {step_ms:.3f} pairs/s "
+              f"{8e3 / step_ms:.3f} (steps 2-{DDP_STEPS - 1}: "
+              f"{[round(r['step_ms'], 3) for r in rec]})", flush=True)
+    trace = Path(f"{tmp / 'torchrun_spatial2'}_bf16_rank0") / "trace.json"
+    print(f"  profile of the sharded step {DDP_STEPS}, rank 0: {allreduce_in_trace(trace)}; "
+          f"{collective_time(trace)}", flush=True)
+    for ex in [f"sp_{name}_{run[5]}" for name, run in runs.items()] + list(one_ex.values()):
         shutil.rmtree(tmp / "log" / "ex" / ex)
     return paths
+
+
+def config_init(ini: Path) -> dict:
+    """The parameters a fresh run of ``ini`` starts from (its seed's init)."""
+    from unflow_tpu_torch.config import load_config
+    from unflow_tpu_torch.models import build_model, init_params
+
+    cfg = load_config(ini)
+    model = build_model(cfg, "cpu")
+    init_params(model, torch.Generator().manual_seed(cfg.train.seed))
+    return model.state_dict()
 
 
 def run_flops(ready_pairs_per_s: float) -> None:
@@ -1815,7 +1979,9 @@ def main() -> int:
         paths.update(run_affine(tmp))
         paths["heldout --arms on, 4 steps, 2 evals of 8 batches"] = run_heldout_short(tmp, "on")
         paths.update(run_summaries(tmp))
-        paths.update(run_distributed(tmp))
+        ddp_paths, one_rank = run_distributed(tmp)
+        paths.update(ddp_paths)
+        paths.update(run_spatial(tmp, one_rank))
         run_flops(ready_pairs_per_s)
         run_profile_hooks(tmp, ready_pairs_per_s)
         run_native(tmp)

@@ -301,3 +301,40 @@ def test_cuda_forward_splat_matches_the_host(cuda_device):
     flips = ((got_cpu < DISOCC_THRESH) != (want.detach() < DISOCC_THRESH)).float().mean().item()
     assert flips <= 1e-3
     assert (card.grad.cpu() - host.grad).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_slab_correlation_matches_the_unsharded_kernel(cuda_device, dtype, tol):
+    """Two W-slabs (8 of 16 columns, C = 64, P = 20: a halo wider than the
+    other slab) through ``correlation_slab`` with hand-made halos (the other
+    slab's columns, zeros past the frame), as two spatial ranks run it, with
+    no process group: the volume and both gradients, through the kernels,
+    against the unsharded kernel's."""
+    from unflow_tpu_torch.ops.correlation import correlation_slab
+
+    shape, p, s = (2, 8, 16, 64), 20, 2
+    a, b = _pair(shape, seed=6)
+    d = displacement_count(p, s)
+    proj = torch.from_numpy(np.random.RandomState(7).randn(*shape[:3], d * d).astype(np.float32))
+    proj = proj.to(cuda_device, dtype)
+
+    def run(sharded):
+        f1 = torch.from_numpy(a).to(cuda_device, dtype).requires_grad_()
+        f2 = torch.from_numpy(b).to(cuda_device, dtype).requires_grad_()
+        if sharded:
+            w = shape[2] // 2
+            f2p = torch.nn.functional.pad(f2, (0, 0, p, p))
+            out = torch.cat([correlation_slab(f1[:, :, r * w : (r + 1) * w],
+                                              f2p[:, :, r * w : r * w + w + 2 * p], p, s)
+                             for r in range(2)], 2)
+        else:
+            out = correlation(f1, f2, p, s)
+        return (out.detach(), *torch.autograd.grad((out * proj).float().sum(), (f1, f2)))
+
+    name = kernel_name("fwd", dtype, shape[3], p, s)
+    before = launch_counts()[name]
+    got = run(True)
+    assert launch_counts()[name] == before + 2
+    for mine, want in zip(got, run(False)):
+        _assert_close(mine, want, tol)

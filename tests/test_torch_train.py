@@ -283,16 +283,15 @@ def test_frozen_spec_leaves_nothing_to_train(tmp_path, batch):
 
 @pytest.mark.parametrize(
     "key,value,item",
-    # the ids are those of the time both keys named A13; several devices are
-    # ported now (one process per GPU): in one process num_devices = 4 names the
-    # torchrun command that starts four; W-sharding is A16
+    # the ids are those of the time both keys named A13; both are ported now
+    # (one process per GPU): in one process, num_devices = 4 and
+    # spatial_shards = 2 each name the torchrun command that starts them
     [pytest.param("num_devices", 4, "torchrun --nproc-per-node 4", id="num_devices-4-A13"),
-     pytest.param("spatial_shards", 2, "A16", id="spatial_shards-2-A13")],
+     pytest.param("spatial_shards", 2, "torchrun --nproc-per-node 2", id="spatial_shards-2-A13")],
 )
 def test_unported_parts_raise_with_their_roadmap_item(tmp_path, batch, key, value, item):
     cfg = _config(Config, tmp_path, **{key: value})
-    error = ValueError if key == "num_devices" else NotImplementedError
-    with pytest.raises(error, match=item):
+    with pytest.raises(ValueError, match=item):
         Trainer(cfg, tmp_path / "ex", itertools.repeat(batch), device="cpu")
 
 

@@ -18,6 +18,13 @@ On several GPUs, one process each (``batch_size`` stays the global batch;
 ``--device cpu`` runs the processes on the CPU over gloo):
 
   torchrun --nproc-per-node 2 -m unflow_tpu_torch.cli.train --config ... --ex ...
+
+With ``--set spatial_shards=S`` the processes form ``N / S`` data ranks of
+``S`` spatial ranks each, which split the width of every frame (a multiple of
+``64 * S``) into W-slabs:
+
+  torchrun --nproc-per-node 4 -m unflow_tpu_torch.cli.train --config ... --ex ... \\
+      --set spatial_shards=2
 """
 
 from __future__ import annotations
@@ -43,11 +50,15 @@ from unflow_tpu_torch.eval.evaluate import predict_flow
 from unflow_tpu_torch.eval.metrics import flow_error_avg
 from unflow_tpu_torch.parallel import (
     barrier,
+    data_shard,
     init_distributed,
+    init_grid,
     is_lead_process,
     local_device,
     per_process_batch_size,
     process_shard,
+    reset_grid,
+    spatial_shard,
 )
 from unflow_tpu_torch.train import CheckpointManager, Trainer
 
@@ -62,12 +73,13 @@ def build_batches_and_norm(cfg: Config, start_batch: int = 0):
     stream is step-indexed: ``start_batch`` is the step a resumed run starts
     at. A dataset directory that does not exist raises here.
 
-    ``batch_size`` is the global batch: under several processes each loads
-    its contiguous rows of every global batch (the union is the one-process
-    stream), and the synthetic stream of process ``r`` is drawn from ``seed +
-    r``, as in the JAX package."""
+    ``batch_size`` is the global batch: under several processes each data
+    rank loads its contiguous rows of every global batch (the union is the
+    one-process stream), and the synthetic stream of data rank ``r`` is drawn
+    from ``seed + r``, as in the JAX package. The ranks of a spatial group
+    (``spatial_shards``) load the same rows."""
     t = cfg.train
-    shard = process_shard()
+    shard = data_shard()
     local_bs = per_process_batch_size(t.batch_size)
     if t.dataset == "synthetic":
         batches = synthetic_batches(
@@ -167,6 +179,7 @@ def main(argv=None) -> int:
     # the stream starts at the checkpointed step, so a resumed run sees the
     # batches an uninterrupted one would
     resume_step = CheckpointManager(ex_dir).latest_step() or 0
+    init_grid(cfg.train.spatial_shards)  # the data shard the input stream loads
     # before the snapshot: a missing dataset writes nothing
     batches, norm = build_batches_and_norm(cfg, start_batch=resume_step)
     if not existed:
@@ -185,14 +198,17 @@ def main(argv=None) -> int:
     trainer = Trainer(cfg, ex_dir, batches, normalization=norm, device=device,
                       eval_fn=build_eval_fn(cfg, norm, device))
     if lead:
+        s = spatial_shard()[1]
         print(f"experiment {args.ex}: step {trainer.step} -> {cfg.train.num_iters}"
-              + (f" on {process_shard()[1]} processes" if multi else ""))
+              + (f" on {process_shard()[1]} processes" if multi else "")
+              + (f" ({data_shard()[1]} data x {s} spatial)" if s > 1 else ""))
     logs = trainer.run()
     if lead and "loss" in logs:
         print(f"done at step {trainer.step}: loss={logs['loss']:.5g}")
     elif lead:
         print(f"already complete at step {trainer.step}")
     if joined:
+        reset_grid()
         torch.distributed.destroy_process_group()
     return 0
 

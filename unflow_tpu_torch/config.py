@@ -24,8 +24,9 @@ ranges ``aug_translate``, ``aug_rotate``, ``aug_zoom_min``,
 ``aug_zoom_max``, ``aug_rel_*``). ``conv_impl``, ``deconv_impl`` and
 ``remat`` select XLA lowerings on the TPU; they are accepted and ignored.
 ``num_devices`` is 0 (as many GPUs as ``torchrun`` started processes) or
-that number (``parallel/``); ``spatial_shards`` > 1 (W-sharding) is not
-ported yet (ROADMAP A16) and makes the trainer raise.
+that number (``parallel/``); ``spatial_shards`` (W-sharding) divides the
+processes into a (data, spatial) grid and needs a ``width`` that is a
+multiple of ``64 * spatial_shards`` (``parallel/spatial.py``).
 """
 
 from __future__ import annotations

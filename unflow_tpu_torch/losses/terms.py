@@ -5,12 +5,22 @@ Port of ``unflow_tpu/losses/terms.py``. The JAX functions take
 last axis and the channel axis is 1. Constants as in the reference: census
 normalization 0.81, soft-hamming 0.1, charbonnier alpha 0.45 / beta 1.0 /
 eps 0.001.
+
+Under W-sharding (inside a ``SpatialContext``) each rank holds a W-slab of
+every field, and every mean becomes this rank's sum over the **global**
+count: the ranks' results add up to the unsharded mean (the train step sums
+them over the spatial group in one all-reduce). The masks use global
+columns; the census patches and the stencils take a halo of their reach,
+zeros past the frame, and a stencil is counted on the rank that owns its
+anchor column.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from unflow_tpu_torch.parallel import spatial
 
 # a pixel on which less splat mass than this lands is disoccluded
 DISOCC_THRESH = 0.8
@@ -27,17 +37,21 @@ def charbonnier_loss(
     alpha: float = 0.45,
     beta: float = 1.0,
     epsilon: float = 0.001,
+    count: int | None = None,
 ) -> torch.Tensor:
     """Generalized charbonnier: sum of ``((x*beta)^2 + eps^2)^alpha`` over the
-    **full** element count, whatever the mask."""
+    **full** element count, whatever the mask. ``count`` is that count (by
+    default the elements of ``x``, times the shards of a W-slab)."""
     error = torch.pow((x * beta).square() + epsilon**2, alpha)
     if mask is not None:
         error = error * mask
     if truncate is not None:
         error = error.clamp(max=truncate)
+    if count is None:
+        count = error.numel() // max(error.shape[-1], 1) * spatial.global_width(error.shape[-1])
     # max(size, 1): a 1-pixel pyramid level gives empty stencil slices;
     # their loss is 0, not NaN.
-    return error.sum() / max(error.numel(), 1)
+    return error.sum() / max(count, 1)
 
 
 def create_outgoing_mask(flow: torch.Tensor) -> torch.Tensor:
@@ -45,11 +59,11 @@ def create_outgoing_mask(flow: torch.Tensor) -> torch.Tensor:
     ``(B, 2, H, W)`` -> ``(B, 1, H, W)``. Coordinates are float32 whatever
     the flow's dtype."""
     h, w = flow.shape[-2:]
-    gx = torch.arange(w, dtype=torch.float32, device=flow.device)
+    gx = spatial.global_x(w, torch.float32, flow.device)
     gy = torch.arange(h, dtype=torch.float32, device=flow.device)[:, None]
     x = gx + flow[:, 0].float()
     y = gy + flow[:, 1].float()
-    inside = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+    inside = (x >= 0) & (x <= spatial.global_width(w) - 1) & (y >= 0) & (y <= h - 1)
     return inside[:, None].to(flow.dtype)
 
 
@@ -60,9 +74,13 @@ def create_border_mask(
     within ``distance`` px of it. The distance is clamped so that the mask
     never comes out empty on a small pyramid level."""
     b, h, w = shape[0], shape[-2], shape[-1]
-    distance = min(distance, (min(h, w) - 1) // 2)
-    m = torch.zeros((h, w), dtype=dtype, device=device)
-    m[distance : h - distance, distance : w - distance] = 1.0
+    total = spatial.global_width(w)
+    distance = min(distance, (min(h, total) - 1) // 2)
+    m = torch.zeros((h, total), dtype=dtype, device=device)
+    m[distance : h - distance, distance : total - distance] = 1.0
+    ctx = spatial.current()
+    if ctx is not None:
+        m = spatial.slab(m, ctx)
     return m.expand(b, 1, h, w)
 
 
@@ -80,7 +98,10 @@ def _extract_patches(x: torch.Tensor, radius: int) -> torch.Tensor:
     zero padding, ordered (ky, kx) as ``lax.conv_general_dilated_patches``."""
     k = 2 * radius + 1
     b, _, h, w = x.shape
-    return F.unfold(x, k, padding=radius).reshape(b, k * k, h, w)
+    if spatial.current() is None:
+        return F.unfold(x, k, padding=radius).reshape(b, k * k, h, w)
+    x = spatial.halo_exchange(x, radius, radius)
+    return F.unfold(x, k, padding=(radius, 0)).reshape(b, k * k, h, w)
 
 
 def ternary_transform(im: torch.Tensor, max_distance: int) -> torch.Tensor:
@@ -113,8 +134,38 @@ def photometric_loss(im_diff: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return charbonnier_loss(im_diff, mask, beta=255.0)
 
 
+def _count(x: torch.Tensor, fewer_rows: int = 0, fewer_cols: int = 0) -> int:
+    """Elements of a stencil field over ``x`` (global width): ``fewer_rows``
+    / ``fewer_cols`` fewer rows / columns than ``x``."""
+    b, c, h, w = x.shape
+    return b * c * (h - fewer_rows) * (spatial.global_width(w) - fewer_cols)
+
+
+def _w_halo(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """Inside a ``SpatialContext``, ``x`` with ``left`` / ``right`` of its
+    neighbours' columns before / after it (zeros past the frame), so that a
+    stencil over it has a value at each column it anchors on the slab;
+    outside one, ``x`` itself (the stencil then spans the frame's own
+    columns)."""
+    if spatial.current() is not None:
+        return spatial.halo_exchange(x, left, right)
+    return x
+
+
+def _owned(t: torch.Tensor, first: int, last: int) -> torch.Tensor:
+    """The columns of a W-stencil field whose anchors this rank owns: the
+    first ``first`` columns belong to no anchor on the first slab, the last
+    ``last`` on the last one (outside a context: ``t`` as it is)."""
+    ctx = spatial.current()
+    if ctx is None:
+        return t
+    return t[..., first if ctx.first else 0 : t.shape[-1] - (last if ctx.last else 0)]
+
+
 def _image_grads(im: torch.Tensor):
-    gx = im[:, :, :, 1:] - im[:, :, :, :-1]
+    """Forward differences along W (anchored at the left pixel) and H."""
+    e = _w_halo(im, 0, 1)
+    gx = _owned(e[:, :, :, 1:] - e[:, :, :, :-1], 0, 1)
     gy = im[:, :, 1:, :] - im[:, :, :-1, :]
     return gx, gy
 
@@ -123,26 +174,34 @@ def gradient_loss(im1: torch.Tensor, im2_warped: torch.Tensor, mask: torch.Tenso
     """Image-gradient data term."""
     g1x, g1y = _image_grads(im1)
     g2x, g2y = _image_grads(im2_warped)
-    lx = charbonnier_loss(g1x - g2x, mask[:, :, :, 1:], beta=255.0)
-    ly = charbonnier_loss(g1y - g2y, mask[:, :, 1:, :], beta=255.0)
+    mask_x = _owned(_w_halo(mask, 0, 1)[:, :, :, 1:], 0, 1)
+    lx = charbonnier_loss(g1x - g2x, mask_x, beta=255.0, count=_count(im1, 0, 1))
+    ly = charbonnier_loss(g1y - g2y, mask[:, :, 1:, :], beta=255.0, count=_count(im1, 1, 0))
     return lx + ly
 
 
 def smoothness_loss(flow: torch.Tensor) -> torch.Tensor:
     """First-order flow smoothness: the two directional charbonnier means are
     **summed**, as the reference's weights assume."""
-    dx = flow[:, :, :, 1:] - flow[:, :, :, :-1]
+    e = _w_halo(flow, 0, 1)
+    dx = _owned(e[:, :, :, 1:] - e[:, :, :, :-1], 0, 1)
     dy = flow[:, :, 1:, :] - flow[:, :, :-1, :]
-    return charbonnier_loss(dx) + charbonnier_loss(dy)
+    return (charbonnier_loss(dx, count=_count(flow, 0, 1))
+            + charbonnier_loss(dy, count=_count(flow, 1, 0)))
 
 
 def second_order_loss(flow: torch.Tensor) -> torch.Tensor:
     """Second-order smoothness: 3-point stencils along W, along H and along
-    both diagonals; the sum of the four stencil means, halved."""
-    h = flow[:, :, :, 2:] - 2.0 * flow[:, :, :, 1:-1] + flow[:, :, :, :-2]
+    both diagonals (anchored at their centre); the sum of the four stencil
+    means, halved."""
+    e = _w_halo(flow, 1, 1)
+    h = _owned(e[:, :, :, 2:] - 2.0 * e[:, :, :, 1:-1] + e[:, :, :, :-2], 1, 1)
     v = flow[:, :, 2:, :] - 2.0 * flow[:, :, 1:-1, :] + flow[:, :, :-2, :]
-    d1 = flow[:, :, 2:, 2:] - 2.0 * flow[:, :, 1:-1, 1:-1] + flow[:, :, :-2, :-2]
-    d2 = flow[:, :, 2:, :-2] - 2.0 * flow[:, :, 1:-1, 1:-1] + flow[:, :, :-2, 2:]
+    d1 = _owned(e[:, :, 2:, 2:] - 2.0 * e[:, :, 1:-1, 1:-1] + e[:, :, :-2, :-2], 1, 1)
+    d2 = _owned(e[:, :, 2:, :-2] - 2.0 * e[:, :, 1:-1, 1:-1] + e[:, :, :-2, 2:], 1, 1)
     return (
-        charbonnier_loss(h) + charbonnier_loss(v) + charbonnier_loss(d1) + charbonnier_loss(d2)
+        charbonnier_loss(h, count=_count(flow, 0, 2))
+        + charbonnier_loss(v, count=_count(flow, 2, 0))
+        + charbonnier_loss(d1, count=_count(flow, 2, 2))
+        + charbonnier_loss(d2, count=_count(flow, 2, 2))
     ) / 2.0

@@ -7,6 +7,10 @@ Occlusion comes from forward-backward consistency: occluded where
 penalty on the occlusion estimate keeps "mask everything" from being free.
 The masks are comparisons, so no gradient passes through them.
 
+Under W-sharding every image, flow and mask here is a W-slab, and every term
+this rank's part of the global mean (``losses/terms.py``); the pyramid's
+average pooling stays local.
+
 Flow units (see ``models/flownet.py``): every pyramid level predicts flow in
 quarter-resolution pixels divided by ``FLOW_SCALE``, so the flow in pixels of
 level i (resolution 1/(4*2^i)) is ``pred_i * FLOW_SCALE / 2^i``.
@@ -33,6 +37,7 @@ from unflow_tpu_torch.losses.terms import (
 from unflow_tpu_torch.models.flownet import FLOW_SCALE
 from unflow_tpu_torch.ops.downsample import downsample
 from unflow_tpu_torch.ops.warp import backward_warp, forward_warp
+from unflow_tpu_torch.parallel import spatial
 
 LOSS_KEYS = ("occ", "sym", "fb", "grad", "ternary", "photo", "smooth_1st", "smooth_2nd")
 
@@ -171,7 +176,8 @@ def unsupervised_loss(
 
         border = None
         if border_ratio > 0:
-            dist = int(min(im1_s.shape[-2:]) * border_ratio)
+            h_s, w_s = im1_s.shape[-2:]
+            dist = int(min(h_s, spatial.global_width(w_s)) * border_ratio)
             if dist > 0:
                 border = create_border_mask(im1_s.shape, dist, im1_s.dtype, im1_s.device)
 

@@ -26,6 +26,11 @@ Tensors are NCHW in ``channels_last`` memory, so ``x.permute(0, 2, 3, 1)``
 hands the correlation a contiguous NHWC view. ``compute_dtype`` runs the
 towers and the decoder (bfloat16 by default in the configs); the flows come
 out as float32.
+
+Under W-sharding (``parallel/spatial.py``) each rank runs the same modules on
+its W-slab: the convs and deconvs take halos, the correlation a halo of its
+displacement range, the glue's warp the gathered frame, and the final
+upsampling one coarse column each side.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from unflow_tpu_torch.ops.conv2d import Conv2dSame
 from unflow_tpu_torch.ops.correlation import displacement_count
 from unflow_tpu_torch.ops.downsample import resize_bilinear
 from unflow_tpu_torch.ops.warp import backward_warp
+from unflow_tpu_torch.parallel import spatial
 
 FLOW_SCALE = 5.0
 
@@ -66,8 +72,13 @@ class Deconv4x4(nn.ConvTranspose2d):
         super().__init__(in_channels, out_channels, 4, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        padding = 1
+        if spatial.current() is not None:
+            # output column 2g + k - 1 reads input g: one neighbour column on
+            # each side, and a W padding of 3 keeps exactly the slab's 2w
+            x, padding = spatial.halo_exchange(x, 1, 1), (1, 3)
         return F.conv_transpose2d(
-            x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=2, padding=1
+            x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=2, padding=padding
         )
 
 

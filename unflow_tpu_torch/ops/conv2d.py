@@ -6,6 +6,10 @@ strided convolution puts the extra pixel on the high side; ``nn.Conv2d``'s
 stride-2 layer by a pixel, so the asymmetric case pads explicitly. The JAX
 package's phase-decomposed data gradient (``conv_impl=phase``) works around
 an XLA lowering on the TPU and has no counterpart here.
+
+Inside a :class:`~unflow_tpu_torch.parallel.spatial.SpatialContext` (W-sharding)
+the W pads are those of the global width, taken as a halo of the neighbours'
+columns (zeros at the global edges); H is padded as without it.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from unflow_tpu_torch.parallel import spatial
 
 
 def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -29,7 +35,10 @@ def conv2d_same(
     """``lax.conv_general_dilated(..., padding="SAME")`` for NCHW/OIHW."""
     kh, kw = weight.shape[-2:]
     top, bottom = same_pads(x.shape[-2], kh, stride)
-    left, right = same_pads(x.shape[-1], kw, stride)
+    left, right = same_pads(spatial.global_width(x.shape[-1]), kw, stride)
+    if spatial.current() is not None:
+        x = spatial.halo_exchange(x, left, right)
+        left = right = 0
     if top == bottom and left == right:
         return F.conv2d(x, weight, bias, stride, padding=(top, left))
     return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from unflow_tpu_torch.ops import resolve_impl
+from unflow_tpu_torch.parallel import spatial
 
 
 def displacement_count(max_displacement: int, stride: int) -> int:
@@ -107,7 +108,37 @@ def correlation(
     CPU tensors), ``torch`` (the plain version, differentiated by autograd)
     or ``cuda`` (the forward and gradient kernels behind one
     ``torch.autograd.Function``; raises for CPU tensors).
+
+    Inside a ``SpatialContext`` the maps are W-slabs: ``f2`` takes a halo of
+    ``max_displacement`` neighbour columns (:func:`correlation_slab`).
     """
+    if spatial.current() is not None:
+        p = max_displacement
+        return correlation_slab(f1, spatial.halo_exchange(f2, p, p, dim=2), p, stride, impl)
+    return _correlation(f1, f2, max_displacement, stride, impl)
+
+
+def correlation_slab(
+    f1: torch.Tensor,
+    f2_ext: torch.Tensor,
+    max_displacement: int = 20,
+    stride: int = 2,
+    impl: str | None = None,
+) -> torch.Tensor:
+    """The cost volume of one W-slab ``f1`` ``(B, H, w, C)``, given
+    ``f2_ext`` ``(B, H, w + 2P, C)``: the slab of the second map with ``P =
+    max_displacement`` columns of its neighbours on each side (zeros past the
+    frame). ``f1`` is zero-extended to that width, the volume of the extended
+    maps computed (by the kernels on CUDA) and cropped to the slab; the
+    columns cropped away are the price, ``2P / w`` of the slab's work."""
+    p = max_displacement
+    if f2_ext.shape[2] != f1.shape[2] + 2 * p:
+        raise ValueError(f"f2_ext {tuple(f2_ext.shape)} is not f1 {tuple(f1.shape)} + 2 x {p}")
+    f1_ext = F.pad(f1, (0, 0, p, p))
+    return _correlation(f1_ext, f2_ext.contiguous(), p, stride, impl)[:, :, p : p + f1.shape[2]]
+
+
+def _correlation(f1, f2, max_displacement, stride, impl):
     if resolve_impl(impl, f1.device) == "cuda":
         from unflow_tpu_torch.ops.cuda.correlation import CorrelationFunction
 

@@ -5,12 +5,17 @@ Port of ``unflow_tpu/ops/downsample.py``; the JAX functions take
 "bilinear")`` samples at half-pixel centers and renormalizes its triangle
 kernel at the borders, which for upsampling is ``F.interpolate(mode=
 "bilinear", align_corners=False)``.
+
+The average pooling is local to a W-slab when the slabs are aligned (as
+W-sharding requires); the resize takes a halo (``resize_bilinear``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from unflow_tpu_torch.parallel import spatial
 
 
 def downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -39,10 +44,25 @@ def downsample_flow(flow: torch.Tensor, factor: int, rescale: bool = False) -> t
 
 
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """``(B, C, H, W)`` -> ``(B, C, height, width)``, computed in float32."""
-    return F.interpolate(
-        x.float(), size=(height, width), mode="bilinear", align_corners=False
-    )
+    """``(B, C, H, W)`` -> ``(B, C, height, width)``, computed in float32.
+
+    Inside a ``SpatialContext`` ``x`` is a W-slab and ``width`` the slab's
+    output width, an integer multiple ``k`` of its own: a sample at
+    half-pixel centres reads at most one coarse column past the slab, so the
+    slab takes one neighbour column on each side (the edge column repeated
+    past the frame, the clamp of the unsharded sample), is resized to ``k``
+    times that width and cropped to its own columns."""
+    if spatial.current() is None:
+        return F.interpolate(
+            x.float(), size=(height, width), mode="bilinear", align_corners=False
+        )
+    w = x.shape[-1]
+    k = width // w
+    if k * w != width:
+        raise ValueError(f"a W-slab resizes by an integer factor only: {w} -> {width}")
+    ext = spatial.halo_exchange(x.float(), 1, 1, edge="replicate")
+    out = F.interpolate(ext, size=(height, k * (w + 2)), mode="bilinear", align_corners=False)
+    return out[..., k : k + width]
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:

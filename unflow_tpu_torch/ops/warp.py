@@ -28,16 +28,26 @@ from __future__ import annotations
 
 import torch
 
+from unflow_tpu_torch.parallel import spatial
+
 
 def backward_warp(im: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Bilinear backward warp of ``im`` ``(B, C, H, W)`` by ``flow`` ``(B, 2, H, W)``."""
+    """Bilinear backward warp of ``im`` ``(B, C, H, W)`` by ``flow`` ``(B, 2, H, W)``.
+
+    Inside a ``SpatialContext`` both are W-slabs. A flow can point anywhere,
+    so no halo bounds the reach: the source frame is gathered whole, sampled
+    at global columns and clamped at the global edge, and each rank warps
+    its own columns."""
     b, c, h, w = im.shape
     if flow.shape != (b, 2, h, w):
         raise ValueError(f"flow {tuple(flow.shape)} does not fit image {tuple(im.shape)}")
+    if spatial.current() is not None:
+        im = spatial.gather_w(im)
+    src_w = im.shape[-1]
     # Coordinates in >= float32: bfloat16 cannot hold pixel positions past
     # 256, which would move the integer taps, not only the weights.
     ct = torch.promote_types(flow.dtype, torch.float32)
-    gx = torch.arange(w, dtype=ct, device=flow.device)
+    gx = spatial.global_x(w, ct, flow.device)
     gy = torch.arange(h, dtype=ct, device=flow.device)[:, None]
     x = gx + flow[:, 0].to(ct)
     y = gy + flow[:, 1].to(ct)
@@ -45,10 +55,10 @@ def backward_warp(im: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     y0 = torch.floor(y)
     wx = (x - x0).to(im.dtype)[:, None]
     wy = (y - y0).to(im.dtype)[:, None]
-    flat = im.reshape(b, c, h * w)
+    flat = im.reshape(b, c, h * src_w)
 
     def tap(ix: torch.Tensor, iy: torch.Tensor) -> torch.Tensor:
-        idx = iy.clamp(0, h - 1).long() * w + ix.clamp(0, w - 1).long()
+        idx = iy.clamp(0, h - 1).long() * src_w + ix.clamp(0, src_w - 1).long()
         idx = idx.reshape(b, 1, h * w).expand(b, c, h * w)
         return torch.gather(flat, 2, idx).reshape(b, c, h, w)
 
@@ -84,14 +94,26 @@ def _splat(values: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out[:, :n].reshape(c, b, h, w).transpose(0, 1)
 
 
+def _splat_slab(values: torch.Tensor | None, flow: torch.Tensor) -> torch.Tensor:
+    """:func:`_splat` of ``values`` (None: ones), or inside a
+    ``SpatialContext`` of W-slabs: mass may land anywhere, so the slabs are
+    gathered, the whole frame splatted on each rank and its columns kept."""
+    ctx = spatial.current()
+    if ctx is not None:
+        flow = spatial.gather_w(flow)
+        values = None if values is None else spatial.gather_w(values)
+    out = _splat(torch.ones_like(flow[:, :1]) if values is None else values, flow)
+    return out if ctx is None else spatial.slab(out, ctx)
+
+
 def forward_warp(flow: torch.Tensor) -> torch.Tensor:
     """Splat density map ``(B, 1, H, W)``: how much mass lands on each pixel
     when every pixel is pushed along ``flow`` ``(B, 2, H, W)``. Pixels where
     nothing lands are disoccluded."""
-    return _splat(torch.ones_like(flow[:, :1]), flow)
+    return _splat_slab(None, flow)
 
 
 def forward_warp_image(im: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Forward-warp ``im`` ``(B, C, H, W)`` by splatting (unnormalized
     accumulation)."""
-    return _splat(im, flow)
+    return _splat_slab(im, flow)

@@ -1,13 +1,15 @@
-"""Data parallelism over several GPUs: batch split, parameters replicated,
-gradients averaged.
+"""Parallelism over several GPUs: batch split (and W split), parameters
+replicated, gradients averaged.
 
 Port of ``unflow_tpu/parallel``. The JAX package shards the batch axis over
-a device mesh, replicates the parameters and lets XLA insert the gradient
-all-reduce. Here each process owns one GPU and its rows of every global
+a device mesh (and W over its second, ``spatial`` axis), replicates the
+parameters and lets XLA insert the gradient all-reduce and the halo
+exchanges. Here each process owns one GPU and its rows of every global
 batch (``parallel/distributed.py``), and ``DistributedDataParallel``
-averages the gradients in buckets during the backward pass. There is no
-mesh object; the W-sharding of ``spatial_shards`` is not ported yet
-(ROADMAP item A16).
+averages the gradients over every process in buckets during the backward
+pass. With ``spatial_shards = S`` the processes form a (data, spatial) grid
+and each one of a spatial group holds a W-slab of its rows
+(``parallel/spatial.py``); there is no mesh object.
 """
 
 from __future__ import annotations
@@ -22,10 +24,19 @@ from unflow_tpu_torch.parallel.distributed import (
     per_process_batch_size,
     process_shard,
 )
+from unflow_tpu_torch.parallel.spatial import (
+    SpatialContext,
+    check_grid,
+    data_shard,
+    init_grid,
+    reset_grid,
+    spatial_shard,
+)
 
 
 def local_batch_size(global_batch: int) -> int:
-    """The pairs of a global batch that one process (one GPU) trains on."""
+    """The pairs of a global batch that one process (one GPU) trains on (the
+    ranks of a spatial group, each on its W-slab of the same pairs)."""
     return per_process_batch_size(global_batch)
 
 
@@ -48,8 +59,10 @@ def check_num_devices(num_devices: int) -> None:
 def wrap_model(model: torch.nn.Module, device: torch.device) -> torch.nn.Module:
     """``model`` as it is in one process; with several,
     ``DistributedDataParallel`` over its trainable parameters (frozen stages
-    take no part), which averages their gradients across the processes.
-    Its construction broadcasts the lead's parameters to every process."""
+    take no part), which averages their gradients across all the processes
+    (the ranks of a spatial group too: the parameters are replicated on
+    every rank). Its construction broadcasts the lead's parameters to every
+    process."""
     if process_shard()[1] == 1:
         return model
     return torch.nn.parallel.DistributedDataParallel(
@@ -58,13 +71,19 @@ def wrap_model(model: torch.nn.Module, device: torch.device) -> torch.nn.Module:
 
 
 __all__ = [
+    "SpatialContext",
     "barrier",
+    "check_grid",
     "check_num_devices",
+    "data_shard",
     "init_distributed",
+    "init_grid",
     "is_lead_process",
     "local_batch_size",
     "local_device",
     "per_process_batch_size",
     "process_shard",
+    "reset_grid",
+    "spatial_shard",
     "wrap_model",
 ]

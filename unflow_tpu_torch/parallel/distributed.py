@@ -9,9 +9,10 @@ per host; PyTorch's idiom, followed here, is one process per GPU, started by
 
     torchrun --nproc-per-node 2 -m unflow_tpu_torch.cli.train --config ... --ex ...
 
-Every process trains on its contiguous slice of each global batch
-(``process_shard`` is the ``Loader``'s ``shard``), and only the lead process
-writes files. Without that environment every function here describes the
+Every process trains on its contiguous slice of each global batch (the
+``Loader``'s ``shard`` is ``spatial.data_shard()``, which is
+``process_shard`` without W-sharding), and only the lead process writes
+files. Without that environment every function here describes the
 one process there is.
 """
 
@@ -21,6 +22,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from unflow_tpu_torch.parallel import spatial
 
 _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -68,10 +71,15 @@ def is_lead_process() -> bool:
 
 
 def per_process_batch_size(global_batch: int) -> int:
-    """This process's rows of a global batch of ``global_batch`` pairs."""
-    n = process_shard()[1]
+    """This process's rows of a global batch of ``global_batch`` pairs: the
+    batch splits over the data ranks, the processes over ``spatial_shards``
+    (``parallel/spatial.py``; the ranks of a spatial group share rows)."""
+    world, s = process_shard()[1], spatial.spatial_size()
+    n = world // s
     if global_batch % n:
-        raise ValueError(f"global batch {global_batch} not divisible by {n} processes")
+        raise ValueError(f"global batch {global_batch} not divisible by {n} processes"
+                         + (f" (data ranks: {world} processes / spatial_shards {s})"
+                            if s > 1 else ""))
     return global_batch // n
 
 

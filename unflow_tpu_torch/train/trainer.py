@@ -22,8 +22,16 @@ batch and keeps its own rows (so that the processes draw what one process
 would), and ``DistributedDataParallel`` averages the gradients; the losses
 are means over equal-size local batches, so the average is the gradient of
 the global batch. The lead process alone writes metrics (averaged over the
-processes), tensorboard and checkpoints; image summaries are off. W-sharding
-(``spatial_shards``) is not ported yet (ROADMAP A16).
+processes), tensorboard and checkpoints; image summaries are off.
+
+With ``spatial_shards = S`` (W-sharding, ``parallel/spatial.py``) the
+processes form a grid of ``N / S`` data ranks times ``S`` spatial ranks. The
+ranks of a spatial group load the same rows, augment the full frames alike
+(the draws depend on the step alone) and cut them to their W-slabs; the
+network, the loss and the backward pass run inside a ``SpatialContext``. The
+step's loss terms are this rank's parts of the global means, summed over the
+group in one all-reduce whose backward carries a factor ``S``, so that DDP's
+average over all ``N`` ranks is the data-parallel mean of the global loss.
 """
 
 from __future__ import annotations
@@ -53,12 +61,17 @@ from unflow_tpu_torch.device import resolve_device
 from unflow_tpu_torch.losses import supervised_loss, unsupervised_loss
 from unflow_tpu_torch.models import FlowNetStack, build_model, init_params
 from unflow_tpu_torch.parallel import (
+    SpatialContext,
     barrier,
+    check_grid,
     check_num_devices,
+    data_shard,
+    init_grid,
     is_lead_process,
     process_shard,
     wrap_model,
 )
+from unflow_tpu_torch.parallel.spatial import slab, sum_over_spatial
 from unflow_tpu_torch.train.checkpoint import CheckpointManager, init_stages_from
 from unflow_tpu_torch.train.schedule import piecewise_halving
 from unflow_tpu_torch.train.summaries import ImageSummaryWriter
@@ -92,14 +105,12 @@ def build_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.Adam:
     )
 
 
-def _check_ported(cfg: Config) -> None:
-    """Raise for config keys that ask for a part the port lacks, or for a
-    ``num_devices`` other than the processes of this run."""
+def _check_parallel(cfg: Config) -> None:
+    """Raise ``ValueError`` for a ``num_devices`` other than the processes of
+    this run, or for ``spatial_shards`` that do not fit them or the width."""
     t = cfg.train
-    if t.spatial_shards > 1:
-        raise NotImplementedError("W-sharding (spatial_shards > 1) is not ported yet: "
-                                  "ROADMAP item A16")
     check_num_devices(t.num_devices)
+    check_grid(t.spatial_shards, t.width)
 
 
 def freeze_stages(model: FlowNetStack, spec: str) -> None:
@@ -167,15 +178,20 @@ def make_train_step(
     ``photometric``, in the layout of the ``sample_*_params`` functions),
     which the step then uses in place of its own draws.
 
-    ``shard`` is ``(rank, processes)`` (by default this process's, from
-    ``parallel``): ``batch`` is then this process's rows of a global batch
-    of ``B x processes`` pairs, the per-example draws (and those ``draws``
-    returns) are of the global batch, and the step keeps rows ``rank x B``
-    to ``(rank + 1) x B`` of them.
+    ``shard`` is ``(rank, processes)`` of the data ranks (by default this
+    process's, ``parallel.data_shard()``): ``batch`` is then this process's
+    rows of a global batch of ``B x processes`` pairs, the per-example draws
+    (and those ``draws`` returns) are of the global batch, and the step keeps
+    rows ``rank x B`` to ``(rank + 1) x B`` of them.
+
+    With ``spatial_shards > 1`` (several processes), the augmented frames are
+    cut to this rank's W-slab and the rest of the step runs in its
+    ``SpatialContext``.
     """
-    _check_ported(cfg)
-    rank, processes = shard if shard is not None else process_shard()
+    _check_parallel(cfg)
     t = cfg.train
+    grid = init_grid(t.spatial_shards)
+    rank, processes = shard if shard is not None else data_shard()
     if t.aug_swap_prob and t.supervised:
         # swapping the frames inverts the motion, and ground truth has one
         # direction
@@ -199,7 +215,6 @@ def make_train_step(
         return x.permute(0, 3, 1, 2)
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        model, optimizer = state.model, state.optimizer
         device = batch["im1"].device
         generator = torch.Generator(device=device).manual_seed(_step_seed(t.seed, state.step))
         given = draws(state.step) if draws is not None else {}
@@ -241,15 +256,28 @@ def make_train_step(
             p1, p2 = im1, im2
         n1 = nchw(normalize(p1, mean, stddev))
         n2 = nchw(normalize(p2, mean, stddev))
+        im1, im2 = nchw(im1), nchw(im2)
+        gt = nchw(gt[0]) if t.supervised else None
+        mask = None if mask is None else nchw(mask)
+        if grid is None:
+            return finish(state, n1, n2, im1, im2, gt, mask, device)
+        # every rank of the group augmented the same full frames: each keeps
+        # its W-slab of them
+        ctx = SpatialContext.of(grid)
+        n1, n2, im1, im2 = (slab(x, ctx) for x in (n1, n2, im1, im2))
+        gt, mask = (None if x is None else slab(x, ctx) for x in (gt, mask))
+        with ctx:
+            return finish(state, n1, n2, im1, im2, gt, mask, device)
 
+    def finish(state, n1, n2, im1, im2, gt, mask, device) -> dict:
+        """The network, the loss, its backward and Adam on the augmented
+        ``(B, C, H, W)`` frames (a W-slab of them inside a context)."""
+        model, optimizer = state.model, state.optimizer
         logs: dict[str, torch.Tensor] = {}
         if t.supervised:
             stages = model(n1, n2)
-            loss, logs = supervised_loss(
-                stages[-1], nchw(gt[0]), None if mask is None else nchw(mask)
-            )
+            loss, logs = supervised_loss(stages[-1], gt, mask)
         else:
-            im1, im2 = nchw(im1), nchw(im2)
             # One apply at 2x batch gives forward AND backward flow: rows 2i
             # and 2i+1 are the (fw, bw) pair of example i, and the second
             # argument is the first with each pair swapped, so the tower runs
@@ -268,6 +296,13 @@ def make_train_step(
                     logs.update({f"stage{si}/{k}": v for k, v in stage_logs.items()})
                 else:
                     logs.update(stage_logs)
+        if grid is not None:
+            # this rank's parts of the global means: one all-reduce sums
+            # them, the total with them
+            keys = list(logs)
+            summed = sum_over_spatial(torch.stack([logs[k].float() for k in keys] + [loss]))
+            logs = dict(zip(keys, summed[:-1].unbind(0)))
+            loss = summed[-1]
 
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -375,6 +410,7 @@ class Trainer:
         self._model = model
         self.state.model = wrap_model(model, self.device)
         self._processes = process_shard()[1]
+        self._data_ranks = data_shard()[1]  # the ranks of a spatial group share rows
         self._lead = is_lead_process()
         self.logger = MetricsLogger(self.exp_dir) if self._lead else None
         self.eval_fn = eval_fn
@@ -466,7 +502,7 @@ class Trainer:
         while self.state.step < target:
             batch = next(self.batches)
             logs = self.train_step(batch)
-            batch_size = batch["im1"].shape[0] * self._processes  # the global batch
+            batch_size = batch["im1"].shape[0] * self._data_ranks  # the global batch
             pairs_accum += batch_size
             if self.state.step % t.display_interval == 0:
                 record = self._global_logs(logs)  # waits for the device
