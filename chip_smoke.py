@@ -14,8 +14,9 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 version on the card (tolerance 1e-5 * max|ref| in float32, 0.02 *
                 max|ref| in bfloat16), at the training geometry (16, 40, 144,
                 256), the eval geometry (4, 48, 160, 256), the held-out run's
-                (16, 16, 32, 256), the supervised and affine paths', the W-sharded
-                slabs with their halos (16 and 8, 40, 112, 256), all with
+                (16, 16, 32, 256), the long run's (8, 16, 32, 256), the supervised
+                and affine paths', the W-sharded slabs with their halos (16 and 8,
+                40, 112, 256; uneven at 4 shards: 16, 40, 80 and 72, 256), all with
                 max_displacement 20 and stride 2, an
                 odd case (W a multiple of no tile, stride 1), and the training
                 geometry with stride 4,
@@ -110,7 +111,13 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 8, a 64-pair corpus, 4 steps in 2 segments across
                 ``--bootstrap-until 2``: the zero-flow AEE is 15.3428, the curve
                 finite, and the three tensor-core kernels launch (the forward
-                also for each held-out batch).
+                also for each held-out batch). Then the probes of
+                ``unflow_tpu_torch/probes/``: the loss landscape at the JAX
+                record's geometry beside ``benchmarks/loss_landscape.json``
+                (the same ``monotone_to_gt`` verdicts), the supervised f32
+                one-batch overfit for 200 steps (its AEE must fall), the
+                autopsy of this run's checkpoint, and the input-dependence
+                probe and the warm start for 24 steps a phase.
  13. supervised -- a FlyingChairs tree (16 pairs of the synthetic renderer at
                 384x512, max_shift 32, PPM and ``.flo``) is written and packed
                 with its ground truth; configs/chairs_supervised.ini as shipped
@@ -135,7 +142,17 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 512x768, batch 8, bf16, the affine augmentation) through
                 ``cli.train`` for 6 steps (the three kernels once a step, and
                 the summaries' forward launches); then
-                the held-out run's ``affine_on`` arm cut as in phase 12.
+                the held-out run's ``affine_on`` arm cut as in phase 12, and
+                ``python -m unflow_tpu_torch.cascade_heldout`` from it: cS and
+                csS 4 steps each, every stage's held-out AEE finite, the csS
+                checkpoint's frozen stages bit-equal to their sources, and
+                one forward launch a step and a held-out batch in each
+                stage. Beside it (both start their segments as processes of
+                their own), ``python -m unflow_tpu_torch.longrun`` cut to 10
+                steps in 3 segment processes (128x256, batch 4, bf16): every
+                loss finite, the learning rate halved at steps 4 and 6, the
+                segments stitched, the three tensor-core kernels once a step.
+                Each segment process counts its own launches.
  16. summaries -- ``cli.train`` (configs/kitti_unsup_c.ini, synthetic) with
                 ``tensorboard`` and an image summary every 2 of 4 steps; the
                 event file is read back with ``read_events`` (the scalars of
@@ -165,11 +182,14 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 deterministic), held against phase 17's one-rank runs; one csS and
                 one ``disocc`` bf16 step against the same steps in this process; the
                 2x2 grid (4 ranks, one card over gloo with fewer than 4 cards), one
-                f32 step against one rank. Limits 2e-2 in bf16, 1e-4 in f32 on the
+                f32 step against one rank, and the 1x4 grid (``spatial_shards=4``:
+                uneven slabs of 320, 320, 256 and 256 columns), one f32 step
+                against one rank. Limits 2e-2 in bf16, 1e-4 in f32 on the
                 losses, the one-step gradient and the parameters; each rank's peak
                 memory beside one rank's, step_ms and the launches are printed.
  19. flops   -- ``utils/flops.py``'s count of the UnFlow-C bf16 step at 320x1152,
-                batch 8 (as the JAX package counts it), and the MFU of phase 4's
+                batch 8, site by site (as the JAX package counts and keys it; the
+                sites sum to its 5,521,148,095,680), and the MFU of phase 4's
                 step against ``peak_flops()`` (none for an unknown card).
  20. profile hooks -- ``utils.profiling.trace`` around two bf16 train steps: the
                 trace reads back and names the three tensor-core kernels;
@@ -184,6 +204,7 @@ Prints the GPU's name and power limit first, then a line per check, a
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import itertools
@@ -256,6 +277,9 @@ PROFILE_GROUPS = {
     "elementwise": ("elementwise",),
 }
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 0.02}
+# the JAX package's count of the UnFlow-C bf16 step at 320x1152, batch 8
+# (tests/test_torch_flops.py holds the port's equal to it)
+UNFLOW_C_FLOPS = 5_521_148_095_680
 # (name, (B, H, W, C), max_displacement, stride)
 KERNEL_CASES = [
     ("train", (16, 40, 144, 256), 20, 2),
@@ -271,6 +295,11 @@ KERNEL_CASES = [
     # batch 8 on one data rank, and 4 pairs a data rank on the 2x2 grid
     ("spatial2", (16, 40, 112, 256), 20, 2),
     ("spatial2x2", (8, 40, 112, 256), 20, 2),
+    # spatial_shards = 4 at 1152 columns: 18 of the deepest level split 5, 5,
+    # 4, 4, so conv3 slabs of 40 and 32 columns, each with the halo of 20
+    ("spatial4_wide", (16, 40, 80, 256), 20, 2),
+    ("spatial4_narrow", (16, 40, 72, 256), 20, 2),
+    ("longrun", (8, 16, 32, 256), 20, 2),  # the long run: 128x256, batch 4
 ]
 
 
@@ -1159,10 +1188,11 @@ def run_real_eval(tmp: Path) -> dict[str, int]:
     return counts
 
 
-def run_heldout_short(tmp: Path, arm: str = "off") -> dict[str, int]:
+def run_heldout_short(tmp: Path, arm: str = "off", keep: bool = False) -> dict[str, int]:
     """The held-out acceptance run's arm ``arm`` (``off`` or ``on``, the
     affine augmentation), cut to 4 steps in 2 segments across the bootstrap
-    boundary, at its geometry; returns its launch counts."""
+    boundary, at its geometry; returns its launch counts. ``keep``: leave its
+    experiment (``tmp/heldout/affine_<arm>``) for the later phases."""
     from unflow_tpu_torch.heldout import HELDOUT_BATCHES
     from unflow_tpu_torch.heldout import main as heldout_main
     from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
@@ -1188,8 +1218,161 @@ def run_heldout_short(tmp: Path, arm: str = "off") -> dict[str, int]:
         raise AssertionError(f"held-out short: launches {mine}, curve {curve}")
     if f"{summary['zero_flow_aee']:.4f}" != "15.3428":
         raise AssertionError(f"held-out set: zero-flow AEE {summary['zero_flow_aee']}")
-    shutil.rmtree(tmp / "heldout")
+    if not keep:
+        shutil.rmtree(tmp / "heldout")
     return mine
+
+
+def _counted(fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: (its result, the kernels it launched)."""
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in launch_counts().items() if v}
+
+
+def run_longrun(tmp: Path) -> dict[str, int]:
+    """``python -m unflow_tpu_torch.longrun`` at its geometry (128x256, batch
+    4, bf16), cut to 10 steps in 3 segment processes, the learning rate
+    halved at steps 4 and 6: its audit must pass (every loss and grad_norm
+    finite, both halvings, the segments stitched with no gap or overlap),
+    and each step must launch the three bf16 kernels once. Returns the
+    launches that the segment processes counted."""
+    from unflow_tpu_torch.longrun import main as longrun_main
+
+    steps = 10
+    t = time.perf_counter()
+    out = tmp / "longrun.json"
+    rc = longrun_main(["--steps", str(steps), "--segments", "3", "--display-interval", "1",
+                       "--exp", str(tmp / "longrun"), "--out", str(out)])
+    summary = json.loads(out.read_text()) if out.exists() else {}
+    launches = summary.get("kernel_launches")
+    print(f"longrun (128x256, batch 4, bf16, {steps} steps in 3 segment processes): rc {rc} "
+          f"lr {summary.get('lr_crossings')} loss {summary.get('loss_first')} -> "
+          f"{summary.get('loss_last')} grad_norm max {summary.get('grad_norm_max')} "
+          f"launches {launches} {time.perf_counter() - t:.1f} s", flush=True)
+    want = {"initial": 1e-4, "step_5": 5e-5, "step_7": 2.5e-5}
+    kernels = ("corr_fwd_bf16", "corr_bwd_f1_bf16", "corr_bwd_f2_bf16")
+    if rc != 0 or not summary.get("ok") or summary["lr_crossings"] != want \
+            or summary["logged_points"] != steps or launches != dict.fromkeys(kernels, steps):
+        raise AssertionError(f"longrun: rc {rc}, {summary}")
+    shutil.rmtree(tmp / "longrun")
+    return launches
+
+
+def run_cascade(tmp: Path) -> dict[str, int]:
+    """``python -m unflow_tpu_torch.cascade_heldout`` from the held-out short
+    run's ``affine_on`` experiment: cS and csS 4 steps each (one segment
+    process each), the held-out AEE of every stage finite, the csS
+    checkpoint's frozen stages bit-equal to their sources, and in each
+    stage (C frozen) one forward launch a step and a held-out batch, no
+    gradient. Returns the launches that the segment processes counted."""
+    from unflow_tpu_torch.cascade_heldout import main as cascade_main
+    from unflow_tpu_torch.heldout import HELDOUT_BATCHES
+    from unflow_tpu_torch.train.checkpoint import restore_params
+
+    t = time.perf_counter()
+    stage1, out = tmp / "heldout" / "affine_on", tmp / "cascade.json"
+    rc = cascade_main(["--steps", "4", "--segments", "1", "--eval-every", "2", "--corpus", "64",
+                       "--stage1", str(stage1), "--synth-cache",
+                       str(tmp / "heldout" / "synth_cache"), "--exp-root", str(tmp / "cascade"),
+                       "--out", str(out)])
+    summary = json.loads(out.read_text())
+    finals = {k: v["final_aee"] for k, v in summary["stages"].items()}
+    css = restore_params(tmp / "cascade" / "csS")
+    sources = {"stage0_C.": restore_params(stage1),
+               "stage1_S.": restore_params(tmp / "cascade" / "cS")}
+    equal = all(torch.equal(v, src[k]) for k, v in css.items() for prefix, src in sources.items()
+                if k.startswith(prefix))
+    stages = [summary["stages"][spec] for spec in ("cS", "csS")]
+    launches = {"corr_fwd_bf16": sum(st["kernel_launches"].get("corr_fwd_bf16", 0)
+                                     for st in stages)}
+    expected = [{"corr_fwd_bf16": 4 + len(st["curve"]) * HELDOUT_BATCHES} for st in stages]
+    print(f"cascade held-out (128x256, batch 8, bf16, stage 1 {summary['stage1_arm']} cut to 4 "
+          f"steps, cS and csS 4 steps each): rc {rc} final AEE {finals} frozen stages equal "
+          f"{equal} launches {[st['kernel_launches'] for st in stages]} "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    if rc != 0 or not equal or not np.isfinite(list(finals.values())).all() \
+            or [st["kernel_launches"] for st in stages] != expected:
+        raise AssertionError(f"cascade held-out: rc {rc}, {finals}, frozen equal {equal}, "
+                             f"launches {[st['kernel_launches'] for st in stages]}")
+    shutil.rmtree(tmp / "cascade")
+    return launches
+
+
+def run_probes(tmp: Path) -> dict[str, dict[str, int]]:
+    """The diagnostic probes of ``unflow_tpu_torch/probes/``: the loss
+    landscape at the JAX record's geometry (128x256, batch 8, seed 777000)
+    beside ``benchmarks/loss_landscape.json`` (a TPU's: its census rounds
+    the grayscale to bf16, so its values sit 3-10% above; the
+    ``monotone_to_gt`` verdicts must agree); the supervised f32 one-batch
+    overfit for 200 steps (the AEE must fall); the autopsy of the held-out
+    short run's checkpoint; the input-dependence probe and the warm start
+    for 24 steps a phase. Returns the launch counts of the probes that
+    train."""
+    from unflow_tpu_torch.probes import autopsy, convergence, input_dependence, landscape
+    from unflow_tpu_torch.probes import warmstart
+
+    paths = {}
+    t = time.perf_counter()
+    out = landscape.probe((128, 256), 8, device="cuda")
+    record = json.loads((ROOT / "benchmarks" / "loss_landscape.json").read_text())
+    for mode, row in out["modes"].items():
+        tpu = record["modes"][mode]
+        print(f"landscape {mode}: loss at alpha {list(row['loss_at_alpha'].values())} (TPU record "
+              f"{list(tpu['loss_at_alpha'].values())}), monotone_to_gt {row['monotone_to_gt']} "
+              f"(record {tpu['monotone_to_gt']})", flush=True)
+        if row["monotone_to_gt"] != tpu["monotone_to_gt"]:
+            raise AssertionError(f"landscape {mode}: verdict differs from the record")
+    print(f"  landscape {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    conv, launches = _counted(lambda: convergence.overfit(False, 200, 1e-4, device="cuda"))
+    print(f"convergence (supervised, f32, 128x256, batch 4, 200 steps at lr 1e-4): AEE zero-flow "
+          f"{conv['zero_flow_aee']:.3f} init {conv['init_aee']:.3f} -> "
+          f"{[round(r['aee'], 3) for r in conv['curve']]} launches {launches} "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    if not conv["final_aee"] < conv["init_aee"]:
+        raise AssertionError(f"convergence: AEE did not fall: {conv}")
+    paths["probes.convergence supervised f32, 200 steps"] = launches
+
+    t = time.perf_counter()
+    (dead, launches) = _counted(lambda: autopsy.autopsy(tmp / "heldout" / "affine_off",
+                                                        device="cuda"))
+    print(f"autopsy of the held-out short run (step {dead['step']}): spread of the predicted "
+          f"means {dead['spread_of_pred_means']:.3f} px ({dead['verdict']}), AEE "
+          f"{[round(p['aee'], 2) for p in dead['pairs']]} launches {launches} "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    if len(dead["pairs"]) != 8 or not np.isfinite([p["aee"] for p in dead["pairs"]]).all():
+        raise AssertionError(f"autopsy: {dead}")
+    paths["probes.autopsy, 8 pairs"] = launches
+
+    t = time.perf_counter()
+    dep, launches = _counted(lambda: input_dependence.probe(24, 12, device="cuda"))
+    print(f"input dependence (f32, 128x256, batch 8, 2 batches, lr 1e-3, 24 steps): "
+          f"{[{k: round(v, 3) for k, v in r.items()} for r in dep['reports']]} "
+          f"launches {launches} {time.perf_counter() - t:.1f} s", flush=True)
+    if not np.isfinite(dep["losses"]).all():
+        raise AssertionError(f"input dependence: {dep['losses']}")
+    paths["probes.input_dependence f32, 24 steps"] = launches
+
+    t = time.perf_counter()
+    args = warmstart.parse_args(["--sup-steps", "24", "--unsup-steps", "24", "--eval-every",
+                                 "12", "--exp-root", str(tmp / "warmstart")])
+    warm, launches = _counted(lambda: warmstart.probe(args, torch.device("cuda")))
+    curves = {k: [c["aee"] for c in warm[k]["curve"]]
+              for k in ("supervised", "unsupervised_continuation")}
+    print(f"warm start (bf16, 128x256, batch 4, 24 steps a phase): held-out AEE {curves}, "
+          f"zero-flow {warm['zero_flow_aee']} launches {launches} "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    if any(len(c) != 2 or not np.isfinite(c).all() for c in curves.values()):
+        raise AssertionError(f"warm start: {curves}")
+    paths["probes.warmstart bf16, 24 + 24 steps"] = launches
+    shutil.rmtree(tmp / "warmstart")
+    return paths
 
 
 def write_chairs_tree(data: Path) -> None:
@@ -1686,10 +1869,13 @@ def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
     step (the glue's warps, the frozen stages) and one ``disocc`` step (the
     splat) in bf16, held against the same steps in this process. Then the
     2x2 grid (4 ranks: 2 data x 2 spatial; on one card over gloo with fewer
-    than 4 cards), one f32 step against the one-rank one. Limits: bf16 2e-2,
-    f32 1e-4, on the losses, the one-step gradient and the parameters. Prints
-    each rank's peak memory beside one rank's, step_ms and the launches.
-    Returns the launch counts of each run, summed over its ranks."""
+    than 4 cards), one f32 step against the one-rank one, and the 1x4 grid
+    (``spatial_shards=4``: the 18 columns of the deepest level split 5, 5, 4,
+    4, so uneven slabs of 320, 320, 256 and 256 columns), one f32 step
+    against the one-rank one. Limits: bf16 2e-2, f32 1e-4, on the losses,
+    the one-step gradient and the parameters. Prints each rank's peak memory
+    beside one rank's, step_ms and the launches. Returns the launch counts of
+    each run, summed over its ranks."""
     from unflow_tpu_torch.cli.train import main as train_main
     from unflow_tpu_torch.config import load_config
     from unflow_tpu_torch.models import DTYPES
@@ -1721,13 +1907,15 @@ def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
     # the one-rank reference of each run: its experiment by name of ``one``
     one_ex = {"bf16": "ddp_bf16_1", "bf16_step": "ddp_bf16_step_1",
               "f32_step": "ddp_f32_step_1", "css": "sp_css_1", "disocc": "sp_disocc_1"}
-    # name -> (dtype, steps, deterministic, config, extra keys, ranks, reference)
+    # name -> (dtype, steps, deterministic, config, extra keys, ranks, reference);
+    # spatial_shards is 2 unless the extra keys say otherwise
     runs = {"bf16": ("bfloat16", DDP_STEPS, False, ini, {}, 2, "bf16"),
             "bf16_step": ("bfloat16", 1, False, ini, {}, 2, "bf16_step"),
             "f32_step": ("float32", 1, True, ini, {}, 2, "f32_step"),
             "css": ("bfloat16", 1, False, css_ini, {}, 2, "css"),
             "disocc": ("bfloat16", 1, False, ini, {"mask_occlusion": "disocc"}, 2, "disocc"),
-            "f32_grid": ("float32", 1, True, ini, {}, 4, "f32_step")}
+            "f32_grid": ("float32", 1, True, ini, {}, 4, "f32_step"),
+            "f32_uneven": ("float32", 1, True, ini, {"spatial_shards": 4}, 4, "f32_step")}
 
     def job(name):
         dtype, steps, deterministic, config, extra, ranks, _ = runs[name]
@@ -1743,7 +1931,8 @@ def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
     results = {}
     for ranks in (2, 4):
         nccl = cards >= ranks
-        print(f"spatial: {ranks} ranks ({ranks // 2} data x 2 spatial) "
+        print(f"spatial: {ranks} ranks ({ranks // 2} data x 2 spatial"
+              f"{'; and 1 data x 4 spatial' if ranks == 4 else ''}) "
               f"{f'on {ranks} cards over NCCL' if nccl else 'on one card over gloo'} "
               f"({cards} card(s) visible)", flush=True)
         out = run_torchrun(tmp, ranks, [job(n) for n, r in runs.items() if r[5] == ranks],
@@ -1759,16 +1948,19 @@ def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
         kernels = ["fwd"] if name == "css" else ["fwd", "bwd_f1", "bwd_f2"]
         expected = {kernel_name(op, DTYPES[dtype], 256, p, 2): steps for op in kernels}
         total = {k: sum(c.get(k, 0) for c in counts) for k in expected}
-        print(f"spatial {name} ({ranks} ranks): rc {[r['rc'] for r in per_rank]} launches per "
+        shards = extra.get("spatial_shards", 2)
+        print(f"spatial {name} ({ranks} ranks, {ranks // shards} data x {shards} spatial): rc "
+              f"{[r['rc'] for r in per_rank]} launches per "
               f"rank {counts} (summed {total}) {per_rank[0]['seconds']:.2f} s; peak MiB per rank "
               f"{[round(r['peak_mib'], 1) for r in per_rank]} against one rank's "
               f"{one[ref]['peak_mib']:.1f}", flush=True)
         if any(r["rc"] != 0 for r in per_rank) or any(c != expected for c in counts):
             raise AssertionError(f"spatial {name}: launches {counts}, want {expected} a rank")
-        paths[f"torchrun {ranks} ranks spatial_shards=2, cli.train kitti_raw packed {dtype}"
-              f"{' ' + config.stem if config != ini else ''}"
-              f"{''.join(f' {k}={v}' for k, v in extra.items())}, {steps} step(s)"] = total
-        hold_run(tmp, f"spatial {name}: {ranks // 2} data x 2 spatial against 1 rank",
+        paths[f"torchrun {ranks} ranks spatial_shards={shards}, cli.train kitti_raw packed "
+              f"{dtype}{' ' + config.stem if config != ini else ''}"
+              f"{''.join(f' {k}={v}' for k, v in extra.items() if k != 'spatial_shards')}, "
+              f"{steps} step(s)"] = total
+        hold_run(tmp, f"spatial {name}: {ranks // shards} data x {shards} spatial against 1 rank",
                  f"sp_{name}_{ranks}", one_ex[ref], steps, 2e-2 if dtype == "bfloat16" else 1e-4,
                  None if name == "css" else start)
     for ranks in (1, 2):
@@ -1800,13 +1992,19 @@ def config_init(ini: Path) -> dict:
 
 def run_flops(ready_pairs_per_s: float) -> None:
     """The conv/matmul FLOPs of the UnFlow-C bf16 step at 320x1152, batch 8
-    (``utils/flops.py``, counted as the JAX package counts them), and the MFU
-    of phase 4's timed step against this card's dense bf16 peak."""
-    from unflow_tpu_torch.config import load_config
-    from unflow_tpu_torch.utils.flops import peak_flops, train_step_flops
+    (``utils/flops.py``'s per-site breakdown, counted and keyed as the JAX
+    package counts them; its sites must sum to the JAX package's count), and
+    the MFU of phase 4's timed step against this card's dense bf16 peak."""
+    from unflow_tpu_torch.utils.flops import breakdown, peak_flops
 
     t = time.perf_counter()
-    flops = train_step_flops(load_config(CONFIG))
+    sites = breakdown()
+    flops = sum(sites.values())
+    if flops != UNFLOW_C_FLOPS:
+        raise AssertionError(f"flops: {flops:,} FLOPs a step, the JAX package counts "
+                             f"{UNFLOW_C_FLOPS:,}")
+    top = [(k, f"{v / flops:.3f}") for k, v in sorted(sites.items(), key=lambda kv: -kv[1])[:3]]
+    print(f"flops: {len(sites)} sites, the largest {top}", flush=True)
     peak = peak_flops()
     name = torch.cuda.get_device_name(0)
     step_s = 8 / ready_pairs_per_s
@@ -1968,7 +2166,9 @@ def main() -> int:
         }
         for dtype, counts in run_real_eval(tmp).items():
             paths[f"Evaluator.run {dtype} kitti_2012, 8 pairs, batch 4"] = counts
-        paths["heldout, 4 steps, 2 evals of 8 batches"] = run_heldout_short(tmp)
+        paths["heldout, 4 steps, 2 evals of 8 batches"] = run_heldout_short(tmp, keep=True)
+        paths.update(run_probes(tmp))
+        shutil.rmtree(tmp / "heldout")
 
         paths.update(run_supervised(tmp))
         run_train_twin(tmp, "bfloat16", 8, 2e-2, supervised="dense")
@@ -1977,7 +2177,16 @@ def main() -> int:
         run_train_twin(tmp, "bfloat16", 8, 2e-2, mask_occlusion="disocc")
         run_disocc_spread(tmp)
         paths.update(run_affine(tmp))
-        paths["heldout --arms on, 4 steps, 2 evals of 8 batches"] = run_heldout_short(tmp, "on")
+        paths["heldout --arms on, 4 steps, 2 evals of 8 batches"] = run_heldout_short(
+            tmp, "on", keep=True)
+        # both run their segments in processes of their own, mostly start-up:
+        # the long run's go beside the cascade's
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            longrun = pool.submit(run_longrun, tmp)
+            paths["cascade_heldout, cS and csS 4 steps each, 2 evals of 8 batches each "
+                  "(segment processes)"] = run_cascade(tmp)
+            paths["longrun, 10 steps in 3 segment processes"] = longrun.result()
+        shutil.rmtree(tmp / "heldout")
         paths.update(run_summaries(tmp))
         ddp_paths, one_rank = run_distributed(tmp)
         paths.update(ddp_paths)

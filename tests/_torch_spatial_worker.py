@@ -9,7 +9,8 @@ what each job returned, a list in job order, to ``<spec>.<rank>.pt``:
 * ``collectives``: ``halo_exchange`` (zeros and replicate past the frame),
   ``gather_w`` and ``sum_over_spatial`` on ``spatial`` shards, forward and
   backward, against slicing one full tensor; the largest difference of each
-  case.
+  case. With ``cols`` the slabs are uneven: each rank's share of the
+  deepest level's columns, times 4.
 * ``flownet``: a FlowNetS or FlowNetC (``state_dict`` from a file) on this
   rank's W-slab of the spec's inputs inside a ``SpatialContext``: the slabs
   of its five flows and, given cotangents (full-width, sliced here), this
@@ -46,34 +47,37 @@ def _padded(full: torch.Tensor, left: int, right: int, edge: str) -> torch.Tenso
     return torch.cat(parts, -1)
 
 
-def collectives(spatial_shards: int) -> dict:
+def collectives(spatial_shards: int, cols: list[int] | None = None) -> dict:
     from unflow_tpu_torch.parallel import SpatialContext, init_grid
     from unflow_tpu_torch.parallel import spatial
 
     grid = init_grid(spatial_shards)
     s, i = grid.spatial, grid.spatial_index
     gen = torch.Generator().manual_seed(0)
-    w = 4
-    full = torch.randn(2, 3, 5, w * s, generator=gen, dtype=torch.float64)
-    mine = full[..., i * w : (i + 1) * w]
+    widths = [4] * s if cols is None else [4 * c for c in cols]
+    starts = [sum(widths[:j]) for j in range(s)]
+    w, x0 = widths[i], starts[i]
+    full = torch.randn(2, 3, 5, sum(widths), generator=gen, dtype=torch.float64)
+    mine = full[..., x0 : x0 + w]
     errors = {}
-    with SpatialContext.of(grid):
+    ctx = SpatialContext(grid.group, s, i, tuple(cols or [1] * s))
+    with ctx:
         for left, right, edge in HALO_CASES:
             # one cotangent per rank's extended slab; the reference gradient
             # of sum_r <ext_r(full), g_r> is the scatter-add of every g_r
-            gs = [torch.randn(2, 3, 5, left + w + right, generator=gen, dtype=torch.float64)
-                  for _ in range(s)]
+            gs = [torch.randn(2, 3, 5, left + wj + right, generator=gen, dtype=torch.float64)
+                  for wj in widths]
             x = mine.clone().requires_grad_()
             out = spatial.halo_exchange(x, left, right, edge=edge)
             (out * gs[i]).sum().backward()
             ref_full = full.clone().requires_grad_()
             padded = _padded(ref_full, left, right, edge)
-            ref = [padded[..., j * w : j * w + left + w + right] for j in range(s)]
+            ref = [padded[..., a : a + left + wj + right] for a, wj in zip(starts, widths)]
             sum((r * g).sum() for r, g in zip(ref, gs)).backward()
             key = f"halo {left},{right} {edge}"
             errors[key] = float((out - ref[i]).abs().max())
             errors[key + " grad"] = float(
-                (x.grad - ref_full.grad[..., i * w : (i + 1) * w]).abs().max())
+                (x.grad - ref_full.grad[..., x0 : x0 + w]).abs().max())
             # along another dim (the correlation's NHWC maps exchange dim 2)
             y = spatial.halo_exchange(mine.transpose(-1, 1).contiguous(), left, right, dim=1,
                                       edge=edge)
@@ -85,7 +89,7 @@ def collectives(spatial_shards: int) -> dict:
         (out * gs[i]).sum().backward()
         errors["gather_w"] = float((out - full).abs().max())
         errors["gather_w grad"] = float(
-            (x.grad - sum(gs)[..., i * w : (i + 1) * w]).abs().max())
+            (x.grad - sum(gs)[..., x0 : x0 + w]).abs().max())
         bf = mine.to(torch.bfloat16)
         errors["gather_w bf16"] = float((spatial.gather_w(bf).double()
                                          - full.to(torch.bfloat16).double()).abs().max())
@@ -102,7 +106,7 @@ def collectives(spatial_shards: int) -> dict:
 
 def flownet(job: dict) -> dict:
     from unflow_tpu_torch.models import FlowNetC, FlowNetS
-    from unflow_tpu_torch.parallel import SpatialContext, init_grid
+    from unflow_tpu_torch.parallel import SpatialContext, init_grid, spatial
 
     grid = init_grid(job["spatial"])
     data = torch.load(job["inputs"], weights_only=True)
@@ -112,13 +116,9 @@ def flownet(job: dict) -> dict:
         model = FlowNetC(max_displacement=job["max_displacement"], corr_stride=2)
     model.load_state_dict(torch.load(job["params"], weights_only=True))
     model = model.to(memory_format=torch.channels_last)
-    s, i = grid.spatial, grid.spatial_index
-
-    def cut(x):
-        w = x.shape[-1] // s
-        return x[..., i * w : (i + 1) * w]
-
-    with SpatialContext.of(grid):
+    width = (data["x"] if job["net"] == "S" else data["im1"]).shape[-1]
+    with SpatialContext.of(grid, width) as ctx:
+        cut = lambda x: spatial.slab(x, ctx)  # noqa: E731
         if job["net"] == "S":
             flows = model(cut(data["x"]))
         else:
@@ -159,7 +159,7 @@ def losses(job: dict) -> dict:
 
     grid = init_grid(job["spatial"])
     data = torch.load(job["inputs"], weights_only=True)
-    with SpatialContext.of(grid) as ctx:
+    with SpatialContext.of(grid, data["im1"].shape[-1]) as ctx:
         return loss_terms({k: [spatial.slab(x, ctx) for x in v] if isinstance(v, list)
                            else spatial.slab(v, ctx) for k, v in data.items()})
 
@@ -191,7 +191,7 @@ def main() -> int:
     results = []
     for job in spec["jobs"]:
         if job["kind"] == "collectives":
-            results.append(collectives(job["spatial"]))
+            results.append(collectives(job["spatial"], job.get("cols")))
         elif job["kind"] == "flownet":
             results.append(flownet(job))
         elif job["kind"] == "losses":

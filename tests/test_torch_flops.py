@@ -20,6 +20,7 @@ from unflow_tpu.utils import flops as flops_jax
 from unflow_tpu_torch.config import Config, load_config
 from unflow_tpu_torch.ops.conv2d import conv2d_same
 from unflow_tpu_torch.utils.flops import (
+    breakdown,
     matmul_flops,
     matmul_flops_by_site,
     peak_flops,
@@ -111,6 +112,35 @@ def test_shipped_unflow_c_step_flops_equal_jax():
     assert flops_jax._jaxpr_flops(jaxpr) == mine + kernels
     assert mine == 5_521_148_095_680
     assert kernels == 3_831_496_704  # 0.07% of the step
+
+
+@pytest.mark.parametrize("spec", ["C", "cS"])
+def test_breakdown_sites_equal_the_jax_scripts(spec):
+    """``scripts/flops_breakdown.py``'s per-site count (its config: bf16, the
+    native conv lowering; the plain correlation) against the port's
+    ``breakdown`` at 64x128, batch 2: every conv site equal, key for key (the
+    forward convs, the data gradients and the filter gradients of every
+    layer, and the census patches), and the resizes' two contractions a site
+    in JAX equal to the port's one resize site."""
+    cfg_jax = ConfigJax()
+    t = cfg_jax.train
+    t.flownet, t.height, t.width, t.batch_size = spec, 64, 128, 2
+    t.compute_dtype, t.conv_impl, t.corr_impl = "bfloat16", "native", "jnp"
+    model = build_model_jax(cfg_jax)
+    sample = jnp.zeros((1, 64, 128, 3), jnp.float32)
+    params = jax.eval_shape(model.init, jax.random.PRNGKey(0), sample, sample)["params"]
+    tx = build_optimizer_jax(cfg_jax, params)
+    state = TrainStateJax(jax.ShapeDtypeStruct((), jnp.int32), _sds(params),
+                          _sds(jax.eval_shape(tx.init, params)))
+    batch = {k: jax.ShapeDtypeStruct((2, 64, 128, 3), jnp.float32) for k in ("im1", "im2")}
+    want = flops_jax.matmul_flops_by_site(make_train_step_jax(model, tx, cfg_jax), state, batch,
+                                          jax.ShapeDtypeStruct((2,), jnp.uint32))
+    mine = breakdown(spec, 64, 128, 2)
+    convs = [{k: v for k, v in sites.items() if k.startswith("conv ")} for sites in (mine, want)]
+    assert convs[0] == convs[1]
+    rest = [sum(v for k, v in sites.items() if not k.startswith("conv ")) for sites in (mine, want)]
+    assert rest[0] == rest[1]
+    assert sum(mine.values()) == sum(want.values())
 
 
 def test_train_step_flops_scale_with_batch():

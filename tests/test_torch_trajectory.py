@@ -199,7 +199,8 @@ def jax_init(cfg_jax, hw):
 
 def run_side_by_side(tmp_path, steps: int, *, hw=(64, 128), batch=2, dtype="float32",
                      augment=True, affine=False, max_displacement=4, n_pairs=16,
-                     eval_every=0, eval_batch=2, free=True, forced=False, noise=False):
+                     eval_every=0, eval_batch=2, free=True, forced=False, noise=False,
+                     perturb=None):
     """Train the JAX package ``steps`` steps and follow it with the port on
     the same batches, from one init. Returns one row per step: ``{"step",
     "jax": logs}`` and, for each port run asked for, its logs:
@@ -215,6 +216,10 @@ def run_side_by_side(tmp_path, steps: int, *, hw=(64, 128), batch=2, dtype="floa
       (the others on 1): its gap to ``free`` is the spread that summation
       order alone opens, the noise floor of the comparison.
 
+    ``perturb``: every run starts from the init multiplied by ``1 + 1e-6 *
+    z``, ``z`` a standard normal draw per element from
+    ``numpy.random.default_rng(perturb)``.
+
     ``heldout_aee`` joins the logs of the JAX, free and noise runs every
     ``eval_every`` steps (0: never). The JAX step trains on the JAX
     package's own ``corpus_iterator``, the port's on the port's, and each
@@ -226,6 +231,10 @@ def run_side_by_side(tmp_path, steps: int, *, hw=(64, 128), batch=2, dtype="floa
                                   max_displacement=max_displacement,
                                   eval_every=max(eval_every, 1))
     model_jax, params = jax_init(cfg_jax, hw)
+    if perturb is not None:
+        rng = np.random.default_rng(perturb)
+        params = jax.tree_util.tree_map(
+            lambda a: a * (1 + 1e-6 * jnp.asarray(rng.standard_normal(a.shape), a.dtype)), params)
     tx = build_optimizer_jax(cfg_jax, params)
     state = TrainStateJax(jnp.zeros((), jnp.int32), params, tx.init(params))
     step_jax = jax.jit(make_train_step_jax(model_jax, tx, cfg_jax))
@@ -380,6 +389,178 @@ def test_bf16_step_rounds_as_far_from_f32_as_jax(tmp_path):
     assert jax_bf16 / 1.5 < port_bf16 < 1.5 * jax_bf16
 
 
+def _rounding_frames() -> tuple[np.ndarray, np.ndarray]:
+    """Two batches of frames (NHWC, 2x64x128x3) for the bf16 forward."""
+    rng = np.random.default_rng(11)
+    return tuple(rng.standard_normal((2, 64, 128, 3)).astype(np.float32) for _ in range(2))
+
+
+def _with_biases(params):
+    """The flax params with every bias drawn (normal, 0.1) from a numpy seed:
+    at init they are zeros, and a sum with a zero bias rounds nothing."""
+    rng = np.random.default_rng(12)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, v: (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+        if path[-1].key == "bias" else np.asarray(v), jax.device_get(params))
+
+
+def xla_rounding_results() -> dict:
+    """What XLA computes for the bf16 rounding tests, as this process's
+    ``XLA_FLAGS`` compile it: one bf16 step of the held-out recipe's
+    bootstrap objective from JAX's init (64x128, batch 2, D = 21, no
+    augmentation), its gradient (Adam's first moment / 0.1) by the port's
+    parameter name under ``step/``; and the float32 flows of the bf16
+    network from JAX's init, its biases drawn (:func:`_with_biases`), on
+    :func:`_rounding_frames`, finest first, under ``flows/``."""
+    import tempfile
+
+    out = {}
+    b = next(corpus_iterator(2, 64, 128, n_pairs=8, seed=0, mode=heldout.DATA_MODE,
+                             max_shift=heldout.MAX_SHIFT, dtype="uint8"))
+    _, cfg_jax = recipe_configs(Path(tempfile.mkdtemp()), 1, dtype="bfloat16", augment=False,
+                                max_displacement=20)
+    model_jax, params = jax_init(cfg_jax, (64, 128))
+    tx = build_optimizer_jax(cfg_jax, params)
+    state = TrainStateJax(jnp.zeros((), jnp.int32), params, tx.init(params))
+    state, _ = jax.jit(make_train_step_jax(model_jax, tx, cfg_jax))(
+        state, {k: jnp.asarray(v) for k, v in b.items()}, jax.random.PRNGKey(0))
+    mu = params_from_flax(jax.device_get(_adam_state(state.opt_state).mu))
+    out.update({f"step/{k}": (v / 0.1).numpy() for k, v in mu.items()})
+    flows = jax.jit(model_jax.apply)({"params": _with_biases(params)},
+                                     *map(jnp.asarray, _rounding_frames()))
+    out.update({f"flows/{i}": np.asarray(f, np.float32).transpose(0, 3, 1, 2)
+                for i, f in enumerate(flows[0])})
+    return out
+
+
+def port_rounding_results(tmp_path) -> dict:
+    """The port's counterpart of :func:`xla_rounding_results` (the same
+    step, the same forward)."""
+    out = {}
+    b = next(corpus_iterator(2, 64, 128, n_pairs=8, seed=0, mode=heldout.DATA_MODE,
+                             max_shift=heldout.MAX_SHIFT, dtype="uint8"))
+    cfg, cfg_jax = recipe_configs(tmp_path, 1, dtype="bfloat16", augment=False,
+                                  max_displacement=20)
+    _, params = jax_init(cfg_jax, (64, 128))
+    trainer = Trainer(cfg, tmp_path / "rounding", itertools.repeat(None), device="cpu",
+                      params=params_from_flax(jax.device_get(params)))
+    trainer.train_step(b)
+    out.update({f"step/{n}": p.grad.numpy() for n, p in trainer.model.named_parameters()})
+    frames = [torch.from_numpy(f).permute(0, 3, 1, 2) for f in _rounding_frames()]
+    with torch.no_grad():
+        trainer.model.load_state_dict(params_from_flax(_with_biases(params)))
+        flows = trainer.model(*frames)
+    out.update({f"flows/{i}": f.numpy() for i, f in enumerate(flows[0])})
+    return out
+
+
+def _gap(a: dict, b: dict, prefix: str) -> float:
+    """Relative L2 of ``a`` from ``b`` over the keys ``prefix`` names: the
+    key itself, or those under it (a prefix ending in ``/``)."""
+    keys = [k for k in b if k.startswith(prefix)] if prefix.endswith("/") else [prefix]
+    num = sum(float(((a[k].astype(np.float64) - b[k]) ** 2).sum()) for k in keys)
+    return (num / sum(float((b[k].astype(np.float64) ** 2).sum()) for k in keys)) ** 0.5
+
+
+def _bf16_share(results: dict, prefix: str, suffix: str = "") -> float:
+    """The share of the elements under ``prefix`` (of keys ending in
+    ``suffix``) that lie within two float32 ulps of a bfloat16 value: 1
+    where they were rounded to bfloat16 (Adam's ``0.1 * g`` and back moves a
+    gradient by an ulp or two)."""
+    hits = total = 0
+    for k, v in results.items():
+        if k.startswith(prefix) and k.endswith(suffix):
+            t = torch.from_numpy(np.ascontiguousarray(v, np.float32)).ravel()
+            hits += int(((t - t.to(torch.bfloat16).float()).abs() <= 2 * t.abs() * 2**-23).sum())
+            total += t.numel()
+    return hits / total
+
+
+@pytest.fixture(scope="module")
+def xla_rounding(tmp_path_factory):
+    """:func:`xla_rounding_results` as XLA compiles them by default (in this
+    process) and held to the program's bf16 rounding
+    (``--xla_allow_excess_precision=false``, in a child process)."""
+    import os
+    import subprocess
+    import sys
+
+    tmp = tmp_path_factory.mktemp("xla_rounding")
+    code = ("import sys; import jax; jax.config.update('jax_platforms', 'cpu'); "
+            f"sys.path.insert(0, {str(ROOT)!r}); import numpy as np; "
+            "from tests.test_torch_trajectory import xla_rounding_results; "
+            f"np.savez({str(tmp / 'held.npz')!r}, **xla_rounding_results())")
+    env = {**os.environ, "XLA_FLAGS": "--xla_allow_excess_precision=false",
+           "JAX_PLATFORMS": "cpu"}
+    child = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    default = xla_rounding_results()
+    port = port_rounding_results(tmp)
+    _, err = child.communicate(timeout=600)
+    assert child.returncode == 0, err[-3000:]
+    held = dict(np.load(tmp / "held.npz"))
+    return default, held, port
+
+
+def test_bf16_step_gradient_rounds_as_xla_compiles_it(xla_rounding):
+    """Where XLA, as it compiles the JAX program by default, keeps a bf16
+    value in float32 (its optimized HLO against the same program under
+    ``--xla_allow_excess_precision=false``): the filter gradient of every
+    conv and transposed conv (and the flow heads' sums,
+    ``test_bf16_flows_round_as_xla_compiles_them``); the forward epilogue
+    (conv, bias, leaky ReLU), the data gradients and the bias gradients
+    round to bf16 in both (the held compilation rounds a bias gradient twice:
+    its float32 sum, then again).
+
+    One bf16 step of the held-out recipe from JAX's init (64x128, batch 2,
+    D = 21): the whole gradient's relative L2 from JAX's step compiled by
+    default and held, printed, with the two JAX steps' own gap. A bf16 net's
+    step amplifies each conv's summation order through the next roundings
+    (the port and JAX part by about 2e-2 whichever rules they follow; the two
+    JAX compilations share XLA's convs and part by 4e-3), so the relative L2
+    cannot tell the rules apart. The rounding shows in the gradient's values:
+    the share of weight-gradient elements that are bfloat16 values is 1 in
+    the held step and about a third in the default one (zeros and values of
+    few bits); the port's lies within 0.02 of the default step's. Every
+    bias-gradient element is a bfloat16 value in all three."""
+    default, held, port = xla_rounding
+    gaps = {"port to JAX default": _gap(port, default, "step/"),
+            "port to JAX held": _gap(port, held, "step/"),
+            "JAX held to JAX default": _gap(held, default, "step/")}
+    print("gradient relative L2:", {k: f"{v:.3e}" for k, v in gaps.items()})
+    shares = {}
+    for suffix in ("weight", "bias"):
+        shares[suffix] = {name: _bf16_share(r, "step/", suffix) for name, r in
+                          (("JAX default", default), ("JAX held", held), ("port", port))}
+        print(f"share of {suffix}-gradient elements that are bf16 values:", shares[suffix])
+    weight, bias = shares["weight"], shares["bias"]
+    assert weight["JAX held"] > 0.999 and weight["JAX default"] < 0.9
+    assert abs(weight["port"] - weight["JAX default"]) < 0.02
+    assert min(bias.values()) > 0.999
+    assert max(gaps.values()) < 5e-2
+
+
+def test_bf16_flows_round_as_xla_compiles_them(xla_rounding):
+    """The flow heads' sum with the bias reaches the loss in float32 when XLA
+    compiles the JAX program by default, rounded to bf16 when it is held to
+    the program. The bf16 network's flows from JAX's init, with biases drawn
+    away from zero, on the same frames:
+    every element a bfloat16 value in the held compilation, few in the
+    default one, and the port's share within 0.02 of the default one's; the
+    relative L2 of each scale printed (the forward's own summation order
+    parts the port from both by about 2e-3)."""
+    default, held, port = xla_rounding
+    for i in range(5):
+        print(f"flow {i}: relative L2 port to JAX default {_gap(port, default, f'flows/{i}'):.3e}, "
+              f"to JAX held {_gap(port, held, f'flows/{i}'):.3e}")
+    shares = {name: _bf16_share(r, "flows/") for name, r in
+              (("JAX default", default), ("JAX held", held), ("port", port))}
+    print("share of flow elements that are bf16 values:", shares)
+    assert shares["JAX held"] == 1.0
+    assert shares["JAX default"] < 0.5
+    assert abs(shares["port"] - shares["JAX default"]) < 0.02
+
+
 def _window_means(rows, run, key="loss", window=50):
     values = np.array([r[run][key] for r in rows])
     return values.reshape(-1, window).mean(1)
@@ -423,11 +604,13 @@ def test_250_steps_follow_jax(tmp_path, case):
     averaged over 50-step windows, and of the held-out AEE, at most three
     times the largest gap between the port and its 4-thread twin, plus 1e-3.
 
-    Printed, not held: in bfloat16 the free-running runs part beyond that
-    spread. From step 50 the JAX package's held-out AEE falls to 15.27-15.34
-    while the port's stays at 15.40-15.49, as both float32 runs do; the
-    port's loss sits 0.03-0.26% under JAX's in every window. ROADMAP C2
-    records it."""
+    Printed, not held: the bfloat16 free runs. With the towers rounded as
+    XLA compiles the JAX program by default (filter gradients and flow
+    heads' sums in float32), the port's held-out AEE stays within 0.33% of
+    JAX's at every point of the off arm and its loss within 0.13% in every
+    window (one run); rounded as the program says, JAX's AEE fell to
+    15.27-15.34 from step 50 while the port's stayed at 15.40-15.49.
+    ROADMAP C2 records both."""
     kwargs, median_tol, max_tol, agreement, leaf_agreement, moment_tol = SLOW_CASES[case]
     rows = run_side_by_side(tmp_path, 250, max_displacement=20, n_pairs=64, eval_every=25,
                             forced=True, noise=True, **kwargs)
@@ -500,11 +683,26 @@ def _port_bf16_curve(tmp_path, steps: int, flow_heads_f32: bool = False) -> list
     return curve
 
 
-def jax_bf16_curve(tmp_path, steps: int) -> list[float]:
-    """The JAX package alone on the same run: its held-out AEE every 25 steps."""
+def jax_bf16_curve(tmp_path, steps: int, perturb: int | None = None) -> list[float]:
+    """The JAX package alone on the same run: its held-out AEE every 25 steps
+    (``perturb``: from the init perturbed as ``run_side_by_side`` says)."""
     rows = run_side_by_side(tmp_path, steps, augment=False, dtype="bfloat16", max_displacement=20,
-                            n_pairs=64, eval_every=25, free=False)
+                            n_pairs=64, eval_every=25, free=False, perturb=perturb)
     return [r["jax"]["heldout_aee"] for r in rows if "heldout_aee" in r["jax"]]
+
+
+@pytest.mark.slow
+def test_jax_bf16_dip_turns_on_a_perturbation(tmp_path):
+    """The early dip of ``test_bf16_parting_follows_xla_excess_precision``
+    is a property of the trajectory: JAX's default compilation from its init
+    perturbed by 1e-6 (relative; draws 1 and 2) reads 15.3043 and 15.4236 at
+    step 100, one dipping as the unperturbed run does (15.3055) and one not.
+    Held: the two perturbed runs' last two points at least 0.05 apart."""
+    curves = [jax_bf16_curve(tmp_path / f"draw{k}", 100, perturb=k) for k in (1, 2)]
+    for k, curve in zip((1, 2), curves):
+        print(f"held-out AEE at steps 25-100, jax default, init perturbed (draw {k}): "
+              f"{[round(v, 4) for v in curve]}")
+    assert abs(np.mean(curves[0][-2:]) - np.mean(curves[1][-2:])) > 0.05
 
 
 @pytest.mark.slow
@@ -514,11 +712,16 @@ def test_bf16_parting_follows_xla_excess_precision(tmp_path):
     package as XLA compiles it by default, of the JAX package with XLA held
     to the program's rounding (``--xla_allow_excess_precision=false``, in a
     child process), of the port, and of the port with its flow heads in
-    float32 (a diagnostic: it reads like the port). By default XLA may
-    compute a bfloat16 chain in float32 and round once; held to the program,
-    JAX's curve is the port's. Held: the default
-    JAX curve's last two points at least 0.05 under the held one's, and the
-    port's within 0.05 of the held one's."""
+    float32 on bf16-rounded operands (a diagnostic). By default XLA keeps the
+    filter gradients and the flow heads' sums in float32, and the port
+    rounds as it does (``test_bf16_step_gradient_rounds_as_xla_compiles_it``):
+    the default JAX curve falls below the held one, and the port's follows
+    the default one (they read 15.3306 and 15.3355 over the last two points,
+    the held one 15.4256). Held: the default JAX curve's last two points at
+    least 0.05 under the held one's, and the port's within 0.05 of the
+    default one's. The dip is a property of this trajectory, not of the
+    rounding alone: JAX's default compilation from its init perturbed by 1e-6
+    (relative, one numpy draw per leaf) dipped in one of two draws."""
     import json
     import os
     import subprocess
@@ -540,4 +743,4 @@ def test_bf16_parting_follows_xla_excess_precision(tmp_path):
                         ("port", port), ("port, flow heads in f32", heads)):
         print(f"held-out AEE at steps 25-{steps}, {name}: {[round(v, 4) for v in curve]}")
     assert np.mean(default[-2:]) < np.mean(held[-2:]) - 0.05
-    assert abs(np.mean(port[-2:]) - np.mean(held[-2:])) < 0.05
+    assert abs(np.mean(port[-2:]) - np.mean(default[-2:])) < 0.05

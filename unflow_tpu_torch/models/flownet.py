@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unflow_tpu_torch.ops import correlation
-from unflow_tpu_torch.ops.conv2d import Conv2dSame
+from unflow_tpu_torch.ops.conv2d import Conv2dSame, conv_like_jax
 from unflow_tpu_torch.ops.correlation import displacement_count
 from unflow_tpu_torch.ops.downsample import resize_bilinear
 from unflow_tpu_torch.ops.warp import backward_warp
@@ -77,9 +77,15 @@ class Deconv4x4(nn.ConvTranspose2d):
             # output column 2g + k - 1 reads input g: one neighbour column on
             # each side, and a W padding of 3 keeps exactly the slab's 2w
             x, padding = spatial.halo_exchange(x, 1, 1), (1, 3)
-        return F.conv_transpose2d(
-            x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=2, padding=padding
-        )
+        return conv_like_jax(x, self.weight, self.bias, 2, padding, transposed=True)
+
+
+class FlowHead(Conv2dSame):
+    """A 3x3 ``predict_flow`` conv to 2 channels. In low precision its sum
+    with the bias stays float32 (the loss reads it; XLA drops the program's
+    rounding there); the next scale's ``upflow`` takes it rounded."""
+
+    float_out = True
 
 
 class Decoder(nn.Module):
@@ -96,29 +102,30 @@ class Decoder(nn.Module):
         cat4 = 512 + 256 + 2  # conv4_1
         cat3 = 256 + 128 + 2  # conv3_1
         cat2 = 128 + 64 + 2  # conv2
-        self.predict_flow6 = Conv2dSame(1024, 2, 3)
+        self.predict_flow6 = FlowHead(1024, 2, 3)
         self.deconv5 = Deconv4x4(1024, 512)
         self.upflow6to5 = Deconv4x4(2, 2)
-        self.predict_flow5 = Conv2dSame(cat5, 2, 3)
+        self.predict_flow5 = FlowHead(cat5, 2, 3)
         self.deconv4 = Deconv4x4(cat5, 256)
         self.upflow5to4 = Deconv4x4(2, 2)
-        self.predict_flow4 = Conv2dSame(cat4, 2, 3)
+        self.predict_flow4 = FlowHead(cat4, 2, 3)
         self.deconv3 = Deconv4x4(cat4, 128)
         self.upflow4to3 = Deconv4x4(2, 2)
-        self.predict_flow3 = Conv2dSame(cat3, 2, 3)
+        self.predict_flow3 = FlowHead(cat3, 2, 3)
         self.deconv2 = Deconv4x4(cat3, 64)
         self.upflow3to2 = Deconv4x4(2, 2)
-        self.predict_flow2 = Conv2dSame(cat2, 2, 3)
+        self.predict_flow2 = FlowHead(cat2, 2, 3)
 
     def forward(self, skip2, skip3, conv4_1, conv5_1, conv6_1) -> list[torch.Tensor]:
+        dt = conv6_1.dtype
         flow6 = self.predict_flow6(conv6_1)
-        cat5 = torch.cat([conv5_1, _leaky(self.deconv5(conv6_1)), self.upflow6to5(flow6)], 1)
+        cat5 = torch.cat([conv5_1, _leaky(self.deconv5(conv6_1)), self.upflow6to5(flow6.to(dt))], 1)
         flow5 = self.predict_flow5(cat5)
-        cat4 = torch.cat([conv4_1, _leaky(self.deconv4(cat5)), self.upflow5to4(flow5)], 1)
+        cat4 = torch.cat([conv4_1, _leaky(self.deconv4(cat5)), self.upflow5to4(flow5.to(dt))], 1)
         flow4 = self.predict_flow4(cat4)
-        cat3 = torch.cat([skip3, _leaky(self.deconv3(cat4)), self.upflow4to3(flow4)], 1)
+        cat3 = torch.cat([skip3, _leaky(self.deconv3(cat4)), self.upflow4to3(flow4.to(dt))], 1)
         flow3 = self.predict_flow3(cat3)
-        cat2 = torch.cat([skip2, _leaky(self.deconv2(cat3)), self.upflow3to2(flow3)], 1)
+        cat2 = torch.cat([skip2, _leaky(self.deconv2(cat3)), self.upflow3to2(flow3.to(dt))], 1)
         flow2 = self.predict_flow2(cat2)
         return [f.float() for f in (flow2, flow3, flow4, flow5, flow6)]
 

@@ -31,6 +31,7 @@ from unflow_tpu_torch.parallel.spatial import (
     init_grid,
     reset_grid,
     spatial_shard,
+    split_columns,
 )
 
 
@@ -85,5 +86,6 @@ __all__ = [
     "process_shard",
     "reset_grid",
     "spatial_shard",
+    "split_columns",
     "wrap_model",
 ]

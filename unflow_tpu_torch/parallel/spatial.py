@@ -17,9 +17,13 @@ bounds the reach (:func:`gather_w`, the warps), and count with the global
 width. The context is entered by the train step only, around the network,
 the loss and its backward pass.
 
-Slabs are equal and aligned: the train width must be a multiple of
-``64 * S`` (FlowNet has six stride-2 levels), so that every slab of every
-pyramid level starts at a column the global stride-2 grid samples.
+Slabs are cut at FlowNet's deepest level (stride 64, six stride-2 levels):
+its ``W / 64`` columns are split as evenly as the ``S`` ranks allow
+(:func:`split_columns`: 18 into 5, 5, 4, 4), and at every other level each
+slab is that many columns times the level's factor, so every slab of every
+pyramid level starts at a column the global stride-2 grid samples. The train
+width must be a multiple of 64 with at least one deep column a rank. Uneven
+slabs exchange strips padded to the widest rank's.
 
 Every collective is an ``all_reduce`` (an all-gather is an ``all_reduce`` of
 a zeroed buffer, each rank's part in its own slot): gloo takes it on the CPU
@@ -63,10 +67,18 @@ def _world() -> tuple[int, int]:
     return 0, 1
 
 
+def split_columns(width: int, spatial: int) -> tuple[int, ...]:
+    """Each rank's columns at the deepest level (``width / 64`` of them),
+    split as evenly as possible, the first ranks taking one more."""
+    n = width // WIDTH_QUANTUM
+    return tuple(n // spatial + (i < n % spatial) for i in range(spatial))
+
+
 def check_grid(spatial: int, width: int | None = None, processes: int | None = None) -> None:
     """Raise ``ValueError`` unless ``spatial`` shards fit the processes of
     this run (it divides them; several need several processes) and, given
-    ``width``, the train width (a multiple of ``64 * spatial``)."""
+    ``width``, the train width (a multiple of 64 with ``width / 64 >=
+    spatial``: a column of the deepest level for each rank)."""
     world = _world()[1] if processes is None else processes
     if spatial < 1:
         raise ValueError(f"spatial_shards must be >= 1, got {spatial}")
@@ -79,14 +91,21 @@ def check_grid(spatial: int, width: int | None = None, processes: int | None = N
         )
     if world % spatial:
         raise ValueError(f"spatial_shards = {spatial} does not divide the {world} processes")
-    quantum = WIDTH_QUANTUM * spatial
-    if width is not None and spatial > 1 and width % quantum:
-        lo = width // quantum * quantum
-        near = [v for v in (lo, lo + quantum) if v > 0]
+    if width is None or spatial == 1:
+        return
+    q = WIDTH_QUANTUM
+    if width % q:
+        lo = width // q * q
+        near = [v for v in (lo, lo + q) if v >= q * spatial]
         raise ValueError(
-            f"width {width} is not a multiple of 64 x spatial_shards = {quantum}, which "
-            f"W-sharding needs (every slab starts on the stride-2 grid of all six levels); "
-            f"nearest valid widths: {near}"
+            f"width {width} is not a multiple of 64, which W-sharding needs (every slab "
+            f"starts on the stride-2 grid of all six levels); nearest valid widths: {near}"
+        )
+    if width // q < spatial:
+        raise ValueError(
+            f"width {width} has {width // q} columns at FlowNet's deepest level (stride 64), "
+            f"fewer than spatial_shards = {spatial}: every rank needs one; the narrowest "
+            f"valid width is {q * spatial}"
         )
 
 
@@ -139,16 +158,42 @@ def spatial_shard() -> tuple[int, int]:
 @dataclasses.dataclass(frozen=True)
 class SpatialContext:
     """Inside ``with SpatialContext(...)``, each op of the network and the
-    loss holds slab ``index`` of ``size`` equal W-slabs and exchanges with
-    ``group``."""
+    loss holds slab ``index`` of ``size`` W-slabs and exchanges with
+    ``group``. ``cols`` holds each rank's share of the deepest level's
+    columns (:func:`split_columns`); a slab ``w`` wide is then ``w /
+    cols[index]`` times its share, and so is every other rank's."""
 
     group: object
     size: int
     index: int
+    cols: tuple[int, ...]
+
+    def __post_init__(self) -> None:
+        if len(self.cols) != self.size or min(self.cols) < 1:
+            raise ValueError(f"{self.size} slabs need a positive share each, got {self.cols}")
 
     @classmethod
-    def of(cls, grid: Grid) -> SpatialContext:
-        return cls(grid.group, grid.spatial, grid.spatial_index)
+    def of(cls, grid: Grid, width: int) -> SpatialContext:
+        """The context of ``grid``'s rank at the train ``width``: its slabs
+        follow :func:`split_columns`."""
+        return cls(grid.group, grid.spatial, grid.spatial_index,
+                   split_columns(width, grid.spatial))
+
+    def widths(self, w: int) -> list[int]:
+        """Every rank's width where this rank's slab is ``w`` wide."""
+        scale, rest = divmod(w, self.cols[self.index])
+        if rest or not scale:
+            raise ValueError(f"a slab {w} wide is no multiple of this rank's "
+                             f"{self.cols[self.index]} deep columns")
+        return [c * scale for c in self.cols]
+
+    def offsets(self, w: int) -> list[int]:
+        """Every rank's first global column where this rank's slab is ``w`` wide."""
+        out, x = [], 0
+        for n in self.widths(w):
+            out.append(x)
+            x += n
+        return out
 
     def __enter__(self) -> SpatialContext:
         object.__setattr__(self, "_token", _CURRENT.set(self))
@@ -158,8 +203,12 @@ class SpatialContext:
         _CURRENT.reset(self._token)
 
     def offset(self, w: int) -> int:
-        """The global column of this slab's first column, for slabs ``w`` wide."""
-        return self.index * w
+        """The global column of this slab's first column, for a slab ``w`` wide."""
+        return self.offsets(w)[self.index]
+
+    def total(self, w: int) -> int:
+        """The global width where this rank's slab is ``w`` wide."""
+        return sum(self.widths(w))
 
     @property
     def first(self) -> bool:
@@ -178,7 +227,7 @@ def current() -> SpatialContext | None:
 def global_width(w: int) -> int:
     """The width of the frame whose slab is ``w`` wide (``w`` outside a context)."""
     ctx = current()
-    return w if ctx is None else w * ctx.size
+    return w if ctx is None else ctx.total(w)
 
 
 def global_x(w: int, dtype: torch.dtype, device) -> torch.Tensor:
@@ -191,20 +240,31 @@ def global_x(w: int, dtype: torch.dtype, device) -> torch.Tensor:
 
 def slab(x: torch.Tensor, ctx: SpatialContext, dim: int = -1) -> torch.Tensor:
     """This rank's columns of a full-width tensor."""
-    w = x.shape[dim] // ctx.size
-    if w * ctx.size != x.shape[dim]:
-        raise ValueError(f"width {x.shape[dim]} does not split into {ctx.size} slabs")
+    full, parts = x.shape[dim], sum(ctx.cols)
+    scale = full // parts
+    if scale * parts != full:
+        raise ValueError(f"width {full} does not split into {ctx.size} slabs")
+    w = scale * ctx.cols[ctx.index]
     return x.narrow(dim, ctx.offset(w), w)
 
 
-def _all_gather(x: torch.Tensor, ctx: SpatialContext) -> torch.Tensor:
-    """``(S, *x.shape)``: every rank's ``x``, in rank order. bfloat16 and
-    float16 travel as float32 (exact; not every backend sums them)."""
+def _all_gather(x: torch.Tensor, ctx: SpatialContext, dim: int = -1,
+                sizes: list[int] | None = None) -> list[torch.Tensor]:
+    """Every rank's ``x``, in rank order. ``sizes``: each rank's extent of
+    ``dim``, where they differ (each is sent padded to the largest).
+    bfloat16 and float16 travel as float32 (exact; not every backend sums
+    them)."""
+    dim = dim % x.dim()
+    most = x.shape[dim] if sizes is None else max(sizes)
     wire = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
-    buf = torch.zeros((ctx.size, *x.shape), dtype=wire, device=x.device)
-    buf[ctx.index] = x
+    shape = list(x.shape)
+    shape[dim] = most
+    buf = torch.zeros((ctx.size, *shape), dtype=wire, device=x.device)
+    buf[ctx.index].narrow(dim, 0, x.shape[dim]).copy_(x)
     dist.all_reduce(buf, group=ctx.group)
-    return buf.to(x.dtype)
+    buf = buf.to(x.dtype)
+    n = [x.shape[dim]] * ctx.size if sizes is None else sizes
+    return [buf[j].narrow(dim, 0, n[j]) for j in range(ctx.size)]
 
 
 def _zeros_like_layout(x: torch.Tensor, shape) -> torch.Tensor:
@@ -236,19 +296,22 @@ class _HaloExchange(torch.autograd.Function):
     def forward(fctx, x, left: int, right: int, dim: int, ctx: SpatialContext):
         dim = dim % x.dim()
         w = x.shape[dim]
-        lw, rw = min(left, w), min(right, w)
+        widths, offsets = ctx.widths(w), ctx.offsets(w)
+        lws, rws = [min(left, v) for v in widths], [min(right, v) for v in widths]
+        lw, rw = lws[ctx.index], rws[ctx.index]
         strips = _all_gather(torch.cat([x.narrow(dim, 0, rw), x.narrow(dim, w - lw, lw)], dim),
-                             ctx)
+                             ctx, dim, [a + b for a, b in zip(lws, rws)])
         shape = list(x.shape)
         shape[dim] = left + w + right
         out = _zeros_like_layout(x, shape)
         out.narrow(dim, left, w).copy_(x)
-        x0 = ctx.offset(w)
+        x0 = offsets[ctx.index]
         for j in range(ctx.size):
             if j == ctx.index:
                 continue
             # rank j's two strips: global column, length, offset in its strip
-            for g0, n, s0 in ((j * w, rw, 0), (j * w + w - lw, lw, rw)):
+            wj, xj = widths[j], offsets[j]
+            for g0, n, s0 in ((xj, rws[j], 0), (xj + wj - lws[j], lws[j], rws[j])):
                 for h0, m, o0 in ((x0 - left, left, 0), (x0 + w, right, left + w)):
                     hit = _overlaps(g0, n, h0, m)
                     if hit is not None:
@@ -261,15 +324,17 @@ class _HaloExchange(torch.autograd.Function):
     def backward(fctx, g):
         left, right, dim, w, ctx = fctx.args
         halos = _all_gather(torch.cat([g.narrow(dim, 0, left), g.narrow(dim, left + w, right)],
-                                      dim), ctx)
+                                      dim), ctx, dim)
         dx = g.narrow(dim, left, w).clone()
-        x0 = ctx.offset(w)
+        widths, offsets = ctx.widths(w), ctx.offsets(w)
+        x0 = offsets[ctx.index]
         for j in range(ctx.size):
             if j == ctx.index:
                 continue
-            # rank j's left halo covers [j w - left, j w), its right one
-            # [j w + w, j w + w + right); what lies on this slab comes home
-            for h0, m, s0 in ((j * w - left, left, 0), (j * w + w, right, left)):
+            # rank j's left halo covers [x_j - left, x_j), its right one
+            # [x_j + w_j, x_j + w_j + right); what lies on this slab comes home
+            xj = offsets[j]
+            for h0, m, s0 in ((xj - left, left, 0), (xj + widths[j], right, left)):
                 hit = _overlaps(h0, m, x0, w)
                 if hit is not None:
                     src, dst, k = hit
@@ -285,7 +350,7 @@ class _GatherW(torch.autograd.Function):
     def forward(fctx, x, dim: int, ctx: SpatialContext):
         dim = dim % x.dim()
         fctx.args = (dim, x.shape[dim], ctx)
-        return torch.cat(_all_gather(x, ctx).unbind(0), dim)
+        return torch.cat(_all_gather(x, ctx, dim, ctx.widths(x.shape[dim])), dim)
 
     @staticmethod
     def backward(fctx, g):
@@ -335,7 +400,7 @@ def halo_exchange(x: torch.Tensor, left: int, right: int, dim: int = -1,
     if edge == "replicate":
         dim = dim % x.dim()
         w = x.shape[dim]
-        x0, total = ctx.offset(w), w * ctx.size
+        x0, total = ctx.offset(w), ctx.total(w)
         lo = max(left - x0, 0)  # columns before global column 0
         hi = max(x0 + w + right - total, 0)  # columns after the last one
         if lo or hi:
@@ -374,6 +439,7 @@ __all__ = [
     "reset_grid",
     "slab",
     "spatial_shard",
+    "split_columns",
     "spatial_size",
     "sum_over_spatial",
 ]

@@ -263,7 +263,7 @@ def make_train_step(
             return finish(state, n1, n2, im1, im2, gt, mask, device)
         # every rank of the group augmented the same full frames: each keeps
         # its W-slab of them
-        ctx = SpatialContext.of(grid)
+        ctx = SpatialContext.of(grid, t.width)
         n1, n2, im1, im2 = (slab(x, ctx) for x in (n1, n2, im1, im2))
         gt, mask = (None if x is None else slab(x, ctx) for x in (gt, mask))
         with ctx:

@@ -32,6 +32,12 @@ matrix units' peak.
 
     flops = train_step_flops(cfg)      # fake tensors: no memory, no device
     mfu = flops / step_seconds / peak_flops()
+
+Per site, as ``scripts/flops_breakdown.py`` prints the JAX package's (a
+filter gradient shows as ``rhs=<the output's cotangent>``):
+
+    python -m unflow_tpu_torch.utils.flops [--spec C] [--height 320] \
+        [--width 1152] [--batch 8] [--top 25]
 """
 
 from __future__ import annotations
@@ -85,54 +91,85 @@ def _resize(b: int, c: int, hw_in, hw_out) -> int:
     return 2 * b * c * min(hi * wo * wi + ho * wo * hi, ho * wi * hi + ho * wo * wi)
 
 
-def _count(func, args, kwargs, out) -> tuple[str, int] | None:
-    """The site key and FLOPs of one aten call, or None if it is not counted."""
+def _nhwc(shape) -> tuple[int, ...]:
+    return (shape[0], *shape[2:], shape[1])
+
+
+def _hwio(w_shape, transposed: bool) -> tuple[int, ...]:
+    """A conv's kernel as XLA sees the JAX package's: ``(kh, kw, C_in, F)``
+    (a transposed conv's ``(C_in, F, kh, kw)`` as flax's ``(kh, kw, C_in,
+    F)``)."""
+    if transposed:
+        return (*w_shape[2:], w_shape[0], w_shape[1])
+    return (*w_shape[2:], w_shape[1], w_shape[0])
+
+
+def _conv_key(rhs, out) -> str:
+    return f"conv rhs={tuple(rhs)} out={tuple(out)}"
+
+
+def _count(func, args, kwargs, out) -> list[tuple[str, int]]:
+    """The sites and FLOPs of one aten call (none if it is not counted),
+    keyed as the JAX package's ``matmul_flops_by_site`` keys the convs that
+    XLA runs for it: ``conv rhs=<shape> out=<shape>`` in NHWC/HWIO. A data
+    gradient's ``rhs`` is the forward's kernel and its ``out`` the forward's
+    input; a filter gradient's ``rhs`` is the output's cotangent and its
+    ``out`` the kernel."""
     packet = func._overloadpacket
     if packet is aten.convolution:
         x, w, transposed, groups = args[0], args[1], bool(args[6]), args[8]
         taps = math.prod(_shape(w)[2:])
-        kind = "conv_transpose" if transposed else "conv"
-        return (f"{kind} w={_shape(w)} out={_shape(out)}",
-                2 * math.prod(_shape(out)) * (_shape(x)[1] // groups) * taps)
+        return [(_conv_key(_hwio(_shape(w), transposed), _nhwc(_shape(out))),
+                 2 * math.prod(_shape(out)) * (_shape(x)[1] // groups) * taps)]
     if packet is aten.convolution_backward:
         grad_out, x, w = args[0], args[1], args[2]
         stride, transposed, groups, mask = args[4], bool(args[7]), args[9], args[10]
         taps = math.prod(_shape(w)[2:])
-        flops = 0
+        kernel = _hwio(_shape(w), transposed)
+        sites = []
         if mask[0]:  # data gradient: a conv over the forward's outputs
             x_shape = _shape(x)
             if not transposed:
                 # the SAME conv's input before ``conv2d_same`` padded it
                 x_shape = x_shape[:2] + tuple(o * s for o, s in zip(_shape(grad_out)[2:], stride))
-            flops += 2 * math.prod(x_shape) * (_shape(grad_out)[1] // groups) * taps
+            sites.append((_conv_key(kernel, _nhwc(x_shape)),
+                          2 * math.prod(x_shape) * (_shape(grad_out)[1] // groups) * taps))
         if mask[1]:  # filter gradient: a reduction over the batch and grad_out's map
-            flops += 2 * math.prod(_shape(w)) * _shape(x)[0] * math.prod(_shape(grad_out)[2:])
-        return f"conv_backward w={_shape(w)} x={_shape(x)} mask={tuple(mask[:2])}", flops
+            sites.append((_conv_key(_nhwc(_shape(grad_out)), kernel),
+                          2 * math.prod(_shape(w)) * _shape(x)[0]
+                          * math.prod(_shape(grad_out)[2:])))
+        return sites
     if packet is aten.im2col:
         x, kernel = args[0], args[1]
-        return f"patches x={_shape(x)} k={tuple(kernel)}", _patches(_shape(x), math.prod(kernel))
+        taps = math.prod(kernel)
+        b, _, h, w = _shape(x)
+        return [(_conv_key((*kernel, 1, taps), (b, h, w, taps)), _patches(_shape(x), taps))]
     if packet is aten.col2im:
         grad, size, kernel = args[0], args[1], args[2]
         taps = math.prod(kernel)
         x_shape = (_shape(grad)[0], _shape(grad)[1] // taps, *size)
-        return f"patches_grad x={x_shape} k={tuple(kernel)}", _patches(x_shape, taps)
+        return [(_conv_key((*kernel, 1, taps), (x_shape[0], *size, 1)),
+                 _patches(x_shape, taps))]
     if packet is aten.upsample_bilinear2d:
         b, c, hi, wi = _shape(args[0])
         ho, wo = _shape(out)[2:]
-        return f"resize {(b, c, hi, wi)}->{(ho, wo)}", _resize(b, c, (hi, wi), (ho, wo))
+        return [(f"resize {(b, c, hi, wi)}->{(ho, wo)}", _resize(b, c, (hi, wi), (ho, wo)))]
     if packet is aten.upsample_bilinear2d_backward:
         b, c, ho, wo = _shape(args[0])
         hi, wi = _shape(out)[2:]
-        return f"resize_grad {(b, c, hi, wi)}->{(ho, wo)}", _resize(b, c, (hi, wi), (ho, wo))
+        return [(f"resize_grad {(b, c, hi, wi)}->{(ho, wo)}",
+                 _resize(b, c, (hi, wi), (ho, wo)))]
     if packet in flop_registry:
         shapes = [_shape(a) for a in args if isinstance(a, torch.Tensor)]
-        return f"{packet.__name__} {shapes}", flop_registry[packet](*args, **kwargs, out_val=out)
-    return None
+        return [(f"{packet.__name__} {shapes}", flop_registry[packet](*args, **kwargs,
+                                                                        out_val=out))]
+    return []
 
 
 class FlopCounter(TorchDispatchMode):
     """Counts the conv/matmul FLOPs of the aten ops run under it, by site
-    (op and shapes), as the JAX package counts the ops it lowers to."""
+    (the convs XLA would run, keyed as the JAX package keys them), as the
+    JAX package counts the ops it lowers to."""
 
     def __init__(self):
         super().__init__()
@@ -141,10 +178,9 @@ class FlopCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        counted = _count(func, args, kwargs, out)
-        if counted is not None and counted[1]:
-            key, flops = counted
-            self.sites[key] = self.sites.get(key, 0) + flops
+        for key, flops in _count(func, args, kwargs, out):
+            if flops:
+                self.sites[key] = self.sites.get(key, 0) + flops
         return out
 
 
@@ -187,3 +223,41 @@ def train_step_flops(cfg, by_site: bool = False) -> int | dict[str, int]:
             batch["flow"] = torch.empty(t.batch_size, t.height, t.width, 2)
         sites = matmul_flops_by_site(make_train_step(cfg, shard=(0, 1)), state, batch)
     return sites if by_site else sum(sites.values())
+
+
+def breakdown(spec: str = "C", height: int = 320, width: int = 1152, batch: int = 8,
+              compute_dtype: str = "bfloat16") -> dict[str, int]:
+    """The bf16 train step's FLOPs by site for a stack ``spec`` at a
+    geometry, as ``scripts/flops_breakdown.py`` configures it."""
+    from unflow_tpu_torch.config import Config
+
+    cfg = Config()
+    t = cfg.train
+    t.flownet = spec
+    t.height, t.width = height, width
+    t.batch_size = batch
+    t.compute_dtype = compute_dtype
+    return train_step_flops(cfg, by_site=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Per-site conv/matmul FLOPs of a train step")
+    ap.add_argument("--spec", default="C")
+    ap.add_argument("--height", type=int, default=320)
+    ap.add_argument("--width", type=int, default=1152)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args(argv)
+    sites = breakdown(args.spec, args.height, args.width, args.batch)
+    total = sum(sites.values())
+    print(f"total matmul/conv FLOPs per step: {total / 1e12:.2f} TF "
+          f"({total / args.batch / 1e9:.1f} GF/pair)")
+    for key, fl in sorted(sites.items(), key=lambda kv: -kv[1])[: args.top]:
+        print(f"{100 * fl / total:5.1f}%  {fl / 1e9:8.1f} GF  {key}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
