@@ -16,7 +16,9 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 256), the eval geometry (4, 48, 160, 256), the held-out run's
                 (16, 16, 32, 256), the long run's (8, 16, 32, 256), the supervised
                 and affine paths', the W-sharded slabs with their halos (16 and 8,
-                40, 112, 256; uneven at 4 shards: 16, 40, 80 and 72, 256), all with
+                40, 112, 256; uneven at 4 shards: 16, 40, 80 and 72, 256), the
+                Sintel fine-tune's (16, 48, 96, 256) and eval's (4, 56, 128, 256),
+                Middlebury's at batch 1 (56x56, 56x80 and 64x80), all with
                 max_displacement 20 and stride 2, an
                 odd case (W a multiple of no tile, stride 1), and the training
                 geometry with stride 4,
@@ -83,9 +85,18 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 Each f32 gap is printed per stage and for its largest leaves,
                 beside the gap between two runs of the plain step itself; then
                 the plain step twice with cuDNN's default algorithms (printed).
-  9. timed cascades -- ``Trainer.run`` for csS and for CSS (``train_all``) at
-                320x1152, batch 8, bf16, on ready host batches: step time, peak
-                memory and a profile of one step, as for C.
+  9. remat   -- per-stage rematerialization: ``cli.train --set remat=true`` for C,
+                csS (from the recipe's experiments) and CSS with ``train_all``,
+                2 steps each at 320x1152, batch 8, bf16 (a trainable C launches
+                ``corr_fwd_bf16`` twice a step, once more for its recompute; a
+                frozen c once); then for each of the three ``Trainer.run`` on
+                ready host batches with remat off and on side by side: step_ms,
+                pairs/s, peak memory and the kernels of a profiled step (the
+                timed csS and CSS runs; C's without remat is phase 4's). Then
+                one step with remat against the same step without it, both
+                through the kernels, cuDNN deterministic: bf16 C at batch 8
+                (equal) and f32 CSS ``train_all`` at batch 2 (1e-6, TF32 off),
+                each arm's launches asserted and its peak printed.
  10. real-data training -- a KITTI raw tree (2 drives of 9 frames at 375x1242,
                 PNG, rendered from smooth textures) and a KITTI 2012 training
                 tree (8 pairs of ``data/synthetic.py::make_pair`` at 375x1242,
@@ -152,7 +163,18 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 steps in 3 segment processes (128x256, batch 4, bf16): every
                 loss finite, the learning rate halved at steps 4 and 6, the
                 segments stitched, the three tensor-core kernels once a step.
-                Each segment process counts its own launches.
+                Each segment process counts its own launches. Then
+                configs/synthia_pretrain_c.ini as shipped on the same tree (2
+                steps); an MPI-Sintel tree (2 scenes of 5 frames at 436x1024,
+                clean and final passes, ``.flo`` ground truth, occlusion masks)
+                and configs/sintel_finetune_css.ini through ``cli.train`` (csS
+                at 384x768, batch 8, bf16, from ``kitti_c`` and ``kitti_cs``; 4
+                steps, the forward once a step); ``cli.eval --dataset sintel``
+                on it, clean and final, at batch 4; a Middlebury tree (the 8
+                ``other-data`` scenes at their published sizes) and ``cli.eval
+                --dataset middlebury --batch 1`` on ``kitti_c``. Each
+                evaluation's flows against its plain-correlation twin
+                (``Evaluator.run``: bf16 2e-2, f32 1e-4).
  16. summaries -- ``cli.train`` (configs/kitti_unsup_c.ini, synthetic) with
                 ``tensorboard`` and an image summary every 2 of 4 steps; the
                 event file is read back with ``read_events`` (the scalars of
@@ -172,8 +194,10 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 1e-4 in f32 with TF32 off and cuDNN deterministic); the 2-rank
                 checkpoint restored by the one-process ``Evaluator(exp_dir=)``
                 against its plain twin; a 2-rank csS run resumed at step 2
-                identical to the uninterrupted one; step_ms and pairs/s of one
-                and two ranks.
+                identical to the uninterrupted one; one 2-rank bf16 step with
+                ``remat`` against the one-rank step without it (2e-2; the
+                forward twice a step a rank); step_ms and pairs/s of one and
+                two ranks.
  18. spatial -- W-sharding: ``cli.train --set spatial_shards=2`` under ``torchrun`` on the
                 packed KITTI raw tree (configs/kitti_unsup_c.ini, 320x1152, global
                 batch 8, a W-slab of 576 columns a rank). Two spatial ranks (one per
@@ -184,7 +208,10 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 2x2 grid (4 ranks, one card over gloo with fewer than 4 cards), one
                 f32 step against one rank, and the 1x4 grid (``spatial_shards=4``:
                 uneven slabs of 320, 320, 256 and 256 columns), one f32 step
-                against one rank. Limits 2e-2 in bf16, 1e-4 in f32 on the
+                against one rank; and one bf16 step with ``remat`` on 2 spatial
+                ranks (the recompute re-issues the halo exchanges in the
+                backward pass) against one rank without it. Limits 2e-2 in
+                bf16, 1e-4 in f32 on the
                 losses, the one-step gradient and the parameters; each rank's peak
                 memory beside one rank's, step_ms and the launches are printed.
  19. flops   -- ``utils/flops.py``'s count of the UnFlow-C bf16 step at 320x1152,
@@ -198,7 +225,8 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 ``_build/``; the KITTI trees' frames and 16-bit flows and a
                 ``Loader`` epoch equal the PIL / numpy path's bit for bit.
 
-Prints the GPU's name and power limit first, then a line per check, a
+Prints the GPU's name and power limit first, then a line per check (and a
+``phase ...: done at`` line after each group of phases), a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -253,6 +281,20 @@ AFFINE_CONFIG = ROOT / "configs" / "synthia_pretrain_c_affine.ini"
 CHAIRS_PAIRS = 16
 SUPERVISED_STEPS = 6
 SYNTHIA_FRAMES = 10
+SYNTHIA_C_CONFIG = ROOT / "configs" / "synthia_pretrain_c.ini"
+SINTEL_CONFIG = ROOT / "configs" / "sintel_finetune_css.ini"
+# MPI-Sintel's training frames (1041 pairs in 23 scenes), cut to 2 scenes of 5
+SINTEL_HW = (436, 1024)
+SINTEL_SCENES = ("alley_1", "market_2")
+SINTEL_FRAMES = 5
+SINTEL_STEPS = 4
+SINTEL_EVAL_BATCH = 4
+# Middlebury's other-data scenes with ground truth, at their published sizes
+MIDDLEBURY_SCENES = {
+    "Dimetrodon": (388, 584), "Grove2": (480, 640), "Grove3": (480, 640),
+    "Hydrangea": (388, 584), "RubberWhale": (388, 584), "Urban2": (480, 640),
+    "Urban3": (480, 640), "Venus": (388, 420),
+}
 # the real-data phases' trees, at KITTI's geometry
 KITTI_RAW_DRIVES = ("2011_09_26_drive_0001_sync", "2011_09_26_drive_0002_sync")
 RAW_FRAMES = 9
@@ -300,6 +342,15 @@ KERNEL_CASES = [
     ("spatial4_wide", (16, 40, 80, 256), 20, 2),
     ("spatial4_narrow", (16, 40, 72, 256), 20, 2),
     ("longrun", (8, 16, 32, 256), 20, 2),  # the long run: 128x256, batch 4
+    # configs/sintel_finetune_css.ini: csS at 384x768, batch 8 (the frozen C)
+    ("sintel_train", (16, 48, 96, 256), 20, 2),
+    # cli.eval --dataset sintel --batch 4: 436x1024 padded to 448x1024
+    ("sintel_eval", (4, 56, 128, 256), 20, 2),
+    # cli.eval --dataset middlebury --batch 1: 388x420, 388x584 and 480x640
+    # padded to 448x448, 448x640 and 512x640
+    ("middlebury_448x448", (1, 56, 56, 256), 20, 2),
+    ("middlebury_448x640", (1, 56, 80, 256), 20, 2),
+    ("middlebury_512x640", (1, 64, 80, 256), 20, 2),
 ]
 
 
@@ -546,9 +597,10 @@ def run_cli(tmp: Path) -> int:
     return launches
 
 
-def profile_call(fn, what: str, wall_s: float, top: int = 8) -> None:
+def profile_call(fn, what: str, wall_s: float, top: int = 8) -> int:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and the
-    device's busy share of the unprofiled wall time ``wall_s`` of one call."""
+    device's busy share of the unprofiled wall time ``wall_s`` of one call.
+    Returns the call's count of kernels and copies."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -561,8 +613,9 @@ def profile_call(fn, what: str, wall_s: float, top: int = 8) -> None:
             if e.device_type == DeviceType.CUDA
             and not (getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."))]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    kernels = sum(e.count for e in rows)
     print(f"  profile: device busy {busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms wall per {what} "
-          f"({busy_ms / (wall_s * 1e3):.3f}), {sum(e.count for e in rows)} kernels and copies")
+          f"({busy_ms / (wall_s * 1e3):.3f}), {kernels} kernels and copies")
     groups: dict[str, list[float]] = {}
     for e in rows:
         group = next((g for g, words in PROFILE_GROUPS.items() if any(w in e.key for w in words)),
@@ -574,6 +627,7 @@ def profile_call(fn, what: str, wall_s: float, top: int = 8) -> None:
         print(f"  profile group: {ms:9.3f} ms  x{count:<5d} {group}")
     for e in sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         print(f"  profile: {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return kernels
 
 
 def run_eval(dtype: str, kernel: str, tolerance: float,
@@ -714,18 +768,23 @@ def host_batches(batch: int, count: int, supervised: str = ""):
 
 def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
                    corr_stride: int = 2, config: Path = CONFIG, seed: int = 5,
-                   control: bool = False, supervised: str = "", **overrides) -> dict[str, int]:
+                   control: bool = False, supervised: str = "", remat: bool = False,
+                   **overrides) -> dict[str, int]:
     """One train step through the kernels against the same step through the
     plain correlation: same parameters (from ``seed``), batch and step seed,
     cuDNN held to its deterministic algorithms (so that the two steps differ
-    by the correlation alone). The step through the kernels must launch the
-    three that the dispatch picks, once each. A stack's gap is also printed
-    per stage and for its largest leaves; with ``control`` the plain step
-    runs twice, and the gap between those two (what is left of the card's
+    by the correlation alone). With ``remat`` the step with remat is held
+    against the same step without it instead, both through the kernels. A
+    ``tolerance`` of 0 asks for equality. The steps through the kernels must
+    launch the three that the dispatch picks, once each (the forward twice
+    under remat: its recompute). A stack's gap is also printed per stage and
+    for its largest leaves; with ``control`` the step held against runs
+    twice, and the gap between those two (what is left of the card's
     run-to-run spread: the float atomics of the gathers' and the resizes'
-    gradients) is printed beside it. ``supervised`` (``dense`` or ``sparse``)
-    takes a supervised step on a batch with ground truth of that kind.
-    Returns the launches of the step through the kernels."""
+    gradients) is printed beside it. Each arm's peak memory is printed.
+    ``supervised`` (``dense`` or ``sparse``) takes a supervised step on a
+    batch with ground truth of that kind. Returns the launches of the step
+    under test."""
     from unflow_tpu_torch.models import DTYPES, build_model, init_params
     from unflow_tpu_torch.ops.cuda.correlation import (
         kernel_name,
@@ -737,33 +796,47 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
     batches = host_batches(batch, 1, supervised)
     if supervised:
         overrides["supervised"] = True
-    results, launched = {}, {}
+    # the arm under test, then the arm it is held against (twice with ``control``)
+    arms = ({"remat": {"corr_impl": "cuda", "remat": True}, "cuda": {"corr_impl": "cuda"}}
+            if remat else {"cuda": {"corr_impl": "cuda"}, "torch": {"corr_impl": "torch"}})
+    test, ref = arms
+    if control:
+        arms[ref + "_again"] = arms[ref]
+    results, launched, peaks, want = {}, {}, {}, {}
     params = None
-    for impl in ("cuda", "torch", "torch_again") if control else ("cuda", "torch"):
+    for arm, arm_overrides in arms.items():
         cfg = train_config(tmp, config, compute_dtype=dtype, batch_size=batch,
-                           corr_impl=impl.removesuffix("_again"), corr_stride=corr_stride,
-                           **overrides)
+                           corr_stride=corr_stride, **arm_overrides, **overrides)
         if params is None:
             model = build_model(cfg, "cpu")
             init_params(model, torch.Generator().manual_seed(seed))
             params = model.state_dict()
-        trainer = Trainer(cfg, tmp / f"twin_{cfg.train.flownet}_{dtype}_s{corr_stride}_{impl}"
+        trainer = Trainer(cfg, tmp / f"twin_{cfg.train.flownet}_{dtype}_s{corr_stride}_{arm}"
                           f"{supervised}{cfg.train.mask_occlusion}", [], device="cuda",
                           params=params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         with deterministic_cudnn():
             logs = {k: float(v) for k, v in trainer.train_step(batches[0]).items()}
             torch.cuda.synchronize()
-        launched[impl] = {k: v for k, v in launch_counts().items() if v}
-        grads = {n: p.grad.flatten() for n, p in trainer.model.named_parameters()
+        peaks[arm] = torch.cuda.max_memory_allocated() / 2**20
+        launched[arm] = {k: v for k, v in launch_counts().items() if v}
+        # kept on the host between arms, so that no arm's peak holds an earlier
+        # arm's gradients; the gaps are summed on the card
+        grads = {n: p.grad.flatten().cpu() for n, p in trainer.model.named_parameters()
                  if p.grad is not None}
-        results[impl] = (logs["loss"], logs["grad_norm"], grads)
-    # every twin's correlation sees FlowNetC's conv3 maps: 256 channels
-    expected = {kernel_name(op, DTYPES[dtype], 256, cfg.train.max_displacement, corr_stride): 1
-                for op in ("fwd", "bwd_f1", "bwd_f2")}
+        results[arm] = (logs["loss"], logs["grad_norm"], grads)
+        # every twin's correlation sees FlowNetC's conv3 maps: 256 channels
+        want[arm] = {} if arm_overrides["corr_impl"] == "torch" else {
+            kernel_name(op, DTYPES[dtype], 256, cfg.train.max_displacement, corr_stride):
+                2 if op == "fwd" and arm_overrides.get("remat") else 1
+            for op in ("fwd", "bwd_f1", "bwd_f2")}
+        del trainer
 
     def gaps(a, b):
         (loss_a, norm_a, g_a), (loss_b, norm_b, g_b) = results[a], results[b]
+        g_a, g_b = ({n: v.cuda() for n, v in g.items()} for g in (g_a, g_b))
         flat_a, flat_b = torch.cat(list(g_a.values())), torch.cat(list(g_b.values()))
         rel = {
             "loss": abs(loss_a - loss_b) / abs(loss_b),
@@ -784,29 +857,33 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
             f"{f' init seed {seed}' if seed != 5 else ''}"
             f"{f' supervised ({supervised} ground truth)' if supervised else ''}"
             f"{' mask_occlusion=disocc' if cfg.train.mask_occlusion == 'disocc' else ''}")
-    rel, per_stage, top = gaps("cuda", "torch")
-    (loss_a, norm_a, _), (loss_b, norm_b, _) = results["cuda"], results["torch"]
-    print(f"train step vs plain twin {what} batch {batch} corr_stride {corr_stride}: "
+    rel, per_stage, top = gaps(test, ref)
+    (loss_a, norm_a, _), (loss_b, norm_b, _) = results[test], results[ref]
+    label_a, label_b = ("remat", "no remat") if remat else ("kernels", "plain")
+    print(("remat twin" if remat else "train step vs plain twin")
+          + f" {what} batch {batch} corr_stride {corr_stride}: "
           f"loss {loss_a:.6g} vs {loss_b:.6g}, grad_norm {norm_a:.6g} vs {norm_b:.6g}, "
           "relative differences " + " ".join(f"{k} {v:.3e}" for k, v in rel.items())
-          + f" (tol {tolerance}); launches {launched['cuda']}", flush=True)
-    pairs = [("kernels vs plain", per_stage, top)]
+          + f" (tol {tolerance}); launches {launched[test]} ({label_a}), {launched[ref]} "
+          f"({label_b}); peak MiB {peaks[test]:.1f} ({label_a}), {peaks[ref]:.1f} ({label_b})",
+          flush=True)
+    pairs = [(f"{label_a} vs {label_b}", per_stage, top)]
     if control:
-        c_rel, c_stage, c_top = gaps("torch_again", "torch")
-        print(f"  control, plain vs plain (same step again): relative differences "
+        c_rel, c_stage, c_top = gaps(ref + "_again", ref)
+        print(f"  control, {label_b} vs {label_b} (same step again): relative differences "
               + " ".join(f"{k} {v:.3e}" for k, v in c_rel.items()), flush=True)
-        pairs.append(("plain vs plain", c_stage, c_top))
+        pairs.append((f"{label_b} vs {label_b}", c_stage, c_top))
     if len(per_stage) > 1:
         for label, stage_gap, leaves in pairs:
             print(f"  {label}: gap per stage (share of the whole gradient's norm) "
                   + " ".join(f"{k} {v:.3e}" for k, v in stage_gap.items())
                   + "; largest leaves " + " ".join(f"{n} {v:.3e}" for n, v in leaves), flush=True)
-    if not (np.isfinite(loss_a) and all(v < tolerance for v in rel.values())):
-        raise AssertionError(f"train step {what} disagrees with its plain-correlation twin")
-    want = {"cuda": expected, "torch": {}, **({"torch_again": {}} if control else {})}
+    within = (lambda v: v == 0) if tolerance == 0 else (lambda v: v < tolerance)
+    if not (np.isfinite(loss_a) and all(within(v) for v in rel.values())):
+        raise AssertionError(f"train step {what} ({label_a}) disagrees with its {label_b} twin")
     if launched != want:
-        raise AssertionError(f"train step {what} did not launch {expected}: {launched}")
-    return launched["cuda"]
+        raise AssertionError(f"train step {what} did not launch {want}: {launched}")
+    return launched[test]
 
 
 def run_cudnn_spread(tmp: Path, seed: int = 7) -> None:
@@ -832,15 +909,17 @@ def run_cudnn_spread(tmp: Path, seed: int = 7) -> None:
 
 
 def run_train_timed(tmp: Path, config: Path = CONFIG, warmup: int = 4, steps: int = 16,
-                    **overrides) -> None:
+                    **overrides) -> dict:
     """``Trainer.run`` at 320x1152, batch 8, bf16 on batches that are ready on
     the host: the step's time from the Trainer's own window (the checkpoint
-    saves left out), the peak memory and a profile of one step."""
+    saves left out), the peak memory and a profile of one step. Returns
+    pairs/s, step_ms, the peak in MiB and the profiled step's kernels."""
     from unflow_tpu_torch.train import Trainer
 
     cfg = train_config(tmp, config, num_iters=warmup + steps, display_interval=warmup + steps,
                        **overrides)
-    what = f"{cfg.train.flownet}{' train_all' if cfg.train.train_all else ''}"
+    what = (f"{cfg.train.flownet}{' train_all' if cfg.train.train_all else ''}"
+            f"{' remat' if cfg.train.remat else ''}")
     exp_dir = tmp / f"timed_{what.replace(' ', '_')}"
     trainer = Trainer(cfg, exp_dir, itertools.cycle(host_batches(8, 2)), device="cuda")
     trainer.run(max_iters=warmup)
@@ -856,8 +935,8 @@ def run_train_timed(tmp: Path, config: Path = CONFIG, warmup: int = 4, steps: in
           f"(host clock, incl. host->device copies); loss {record['loss']:.5g}; peak memory "
           f"{peak / 2**20:.1f} MiB ({peak / total:.3f} of the card's {total / 2**30:.1f} GiB)",
           flush=True)
-    profile_call(lambda: trainer.train_step(next(trainer.batches)), "train step",
-                 record["step_ms"] / 1e3, top=14)
+    kernels = profile_call(lambda: trainer.train_step(next(trainer.batches)), "train step",
+                           record["step_ms"] / 1e3, top=14)
     # After earlier profiler sessions in one process the tracer was seen to
     # drop the large pageable copies, so the batch's copy is timed on its own.
     batch = next(trainer.batches)
@@ -866,7 +945,8 @@ def run_train_timed(tmp: Path, config: Path = CONFIG, warmup: int = 4, steps: in
     print(f"  batch host->device copy ({mib:.1f} MiB, pageable): {copy_ms:.3f} ms by CUDA events "
           f"(part of each step; it may be missing from the profile above)", flush=True)
     shutil.rmtree(exp_dir)  # its checkpoints: a cascade's is over a GB
-    return record["pairs_per_sec"]
+    return {"pairs_per_s": record["pairs_per_sec"], "step_ms": record["step_ms"],
+            "peak_mib": peak / 2**20, "kernels": kernels}
 
 
 def run_train_profiled_f32(tmp: Path, warmup: int = 2) -> None:
@@ -890,6 +970,62 @@ def run_train_profiled_f32(tmp: Path, warmup: int = 2) -> None:
     if mine != {"corr_fwd_f32": 1, "corr_bwd_f1_f32": 1, "corr_bwd_f2_f32": 1}:
         raise AssertionError(f"the f32 train step did not launch the three f32 kernels: {mine}")
     profile_call(lambda: trainer.train_step(next(trainer.batches)), "f32 train step", wall_s, top=14)
+
+
+# the stacks of the remat phase: config and overrides (csS through cli.train
+# is finetuned from the recipe's experiments; its timed runs start from the
+# init, as the earlier phases' timed runs do)
+REMAT_STACKS = {
+    "C": (CONFIG, {}),
+    "csS": (CSS_CONFIG, {}),
+    "CSS train_all": (CSS_CONFIG, {"flownet": "CSS", "train_all": True, "finetune": ()}),
+}
+
+
+def remat_launches(stack: str, steps: int, remat: bool) -> dict[str, int]:
+    """The bf16 launches of ``steps`` steps of ``stack``. A trainable C stage
+    launches the forward once more a step under remat: its recompute in the
+    backward pass. A frozen c stage needs no gradient, so nothing of it is
+    recomputed: it launches the forward alone, with remat as without."""
+    if stack.startswith("c"):
+        return {"corr_fwd_bf16": steps}
+    return {"corr_fwd_bf16": (2 if remat else 1) * steps, "corr_bwd_f1_bf16": steps,
+            "corr_bwd_f2_bf16": steps}
+
+
+def run_remat(tmp: Path, c_plain: dict) -> dict[str, dict[str, int]]:
+    """Per-stage rematerialization at 320x1152, batch 8, bf16: ``cli.train
+    --set remat=true`` for C, csS and CSS with ``train_all``
+    (``RECIPE_STEPS`` steps each, their launches asserted), then each stack's
+    ``Trainer.run`` on ready host batches with remat off and on, side by
+    side: pairs/s, step_ms, the peak memory and the kernels of one profiled
+    step (C's run without remat is the training phase's, ``c_plain``).
+    Returns the ``cli.train`` runs' launch counts by path."""
+    paths = {}
+    for stack, (config, overrides) in REMAT_STACKS.items():
+        ex = "remat_" + stack.replace(" ", "_")
+        mine, records, wall, _ = run_cli_train(tmp, config, ex, RECIPE_STEPS,
+                                               ["--set", "remat=true"], display_interval=1,
+                                               **overrides)
+        expected = remat_launches(stack, RECIPE_STEPS, True)
+        what = f"{config.name}{' --set flownet=CSS train_all=true' if 'train_all' in overrides else ''}"
+        print(f"remat cli.train {what} --set remat=true ({stack}) bf16 320x1152 batch 8: steps "
+              f"{records[-1]['step']} launches {mine} (want {expected}) losses "
+              f"{[round(r['loss'], 4) for r in records]} {wall:.2f} s", flush=True)
+        if mine != expected:
+            raise AssertionError(f"remat cli.train {stack}: launches {mine}, want {expected}")
+        paths[f"cli.train {what} --set remat=true, {RECIPE_STEPS} steps"] = mine
+        shutil.rmtree(tmp / "log" / "ex" / ex)
+    for stack, (config, overrides) in REMAT_STACKS.items():
+        off = c_plain if stack == "C" else run_train_timed(tmp, config,
+                                                            **{**overrides, "finetune": ()})
+        on = run_train_timed(tmp, config, remat=True, **{**overrides, "finetune": ()})
+        print(f"remat {stack} bf16 320x1152 batch 8, Trainer.run on ready host batches: step_ms "
+              f"{off['step_ms']:.3f} off, {on['step_ms']:.3f} on ({on['step_ms'] / off['step_ms']:.3f}"
+              f"x); pairs/s {off['pairs_per_s']:.3f} / {on['pairs_per_s']:.3f}; peak MiB "
+              f"{off['peak_mib']:.1f} / {on['peak_mib']:.1f} ({on['peak_mib'] / off['peak_mib']:.3f}"
+              f"x); kernels a step {off['kernels']} / {on['kernels']}", flush=True)
+    return paths
 
 
 def run_recipe(tmp: Path) -> None:
@@ -1112,80 +1248,87 @@ def run_real_eval(tmp: Path) -> dict[str, int]:
     """``cli.eval --ex kitti_real`` on the KITTI 2012 tree, then
     ``Evaluator.run`` on the same weights through the kernel against the plain
     correlation, in bf16 and in f32; returns the launch counts of each."""
-    import io
-
-    from unflow_tpu_torch.cli.eval import main as eval_main
-    from unflow_tpu_torch.config import load_config
     from unflow_tpu_torch.data import dataset_normalization, get_dataset
-    from unflow_tpu_torch.eval.evaluate import Evaluator
-    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
 
-    batches = KITTI_PAIRS // 4
-    cwd = os.getcwd()
-    os.chdir(tmp)  # the experiment lives under ./log
-    try:
-        reset_launch_counts()
-        out = io.StringIO()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = eval_main(["--ex", "kitti_real", "--dataset", "kitti_2012", "--batch", "4"])
-        torch.cuda.synchronize()
-    finally:
-        os.chdir(cwd)
-    mine = {k: v for k, v in launch_counts().items() if v}
-    line = out.getvalue().strip().splitlines()[-1]
-    print(f"real data cli.eval --ex kitti_real --dataset kitti_2012 --batch 4 (375x1242): rc {rc} "
-          f"launches {mine} {time.perf_counter() - t:.2f} s: {line}", flush=True)
-    numbers = [float(x) for x in re.findall(r"=([-\d.naninf]+)", line)]
-    if rc != 0 or mine != {"corr_fwd_bf16": batches} or not np.isfinite(numbers).all():
-        raise AssertionError(f"cli.eval: launches {mine}, line {line!r}")
-    if not all(w in line for w in ("AEE=", "Fl=", f"(n={KITTI_PAIRS})", "| noc: AEE=",
-                                   "| occ-only: AEE=")):
+    _, line = run_cli_eval(tmp, "kitti_real", "kitti_2012", 4, KITTI_PAIRS)
+    if not all(w in line for w in ("AEE=", "Fl=", "| noc: AEE=", "| occ-only: AEE=")):
         raise AssertionError(f"cli.eval printed no noc/occ breakdown: {line!r}")
 
     exp_dir = tmp / "log" / "ex" / "kitti_real"
     examples = get_dataset("kitti_2012", tmp / "data").eval_examples("occ")
-    norm = dataset_normalization("kitti_raw")
-    counts = {}
+    counts = hold_eval_twins("kitti_2012", exp_dir, examples, dataset_normalization("kitti_raw"),
+                             4)
+    for dtype, got in counts.items():
+        if got["n_gt"] != KITTI_PAIRS or any(e["flow"].shape != (*FRAME_HW, 2)
+                                             for e in got["entries"]):
+            raise AssertionError(f"Evaluator.run {dtype}: {got['n_gt']} pairs with ground truth")
+        if "aee_noc" not in got or "aee_occ" not in got:
+            raise AssertionError(f"Evaluator.run {dtype}: no noc/occ breakdown")
+    return {dtype: got["launches"] for dtype, got in counts.items()}
+
+
+def hold_eval_twins(what: str, exp_dir: Path, examples, norm, batch: int) -> dict[str, dict]:
+    """``Evaluator.run`` of the experiment ``exp_dir`` on ``examples`` at
+    ``eval_batch=batch`` through the kernel against the plain correlation
+    (which launches no kernel), in bf16 and in f32 (TF32 off, through
+    ``corr_fwd_f32``): the predicted flows within 2e-2 relative L2 in bf16,
+    1e-4 in f32, finite, of each pair's frame size, and one launch per forward
+    of up to ``batch`` same-size pairs. Returns each dtype's result of the run
+    through the kernel, with its launch counts under ``launches``."""
+    from PIL import Image
+
+    from unflow_tpu_torch.config import load_config
+    from unflow_tpu_torch.eval.evaluate import Evaluator
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+
+    sizes: dict[tuple, int] = {}
+    for ex in examples:
+        with Image.open(ex.im1) as im:
+            sizes[im.size] = sizes.get(im.size, 0) + 1
+    forwards = sum(-(-n // batch) for n in sizes.values())
+    n = len(examples)
+    results = {}
     for dtype, kernel, tolerance in (("bfloat16", "corr_fwd_bf16", 2e-2),
                                      ("float32", "corr_fwd_f32", 1e-4)):
         cfg = load_config(exp_dir / "config.ini")
         cfg.train.compute_dtype = dtype
         ev = Evaluator(cfg, exp_dir, normalization=norm, device="cuda")
-        ev.run(examples, eval_batch=4)  # warm-up: cuDNN picks its algorithms
+        ev.run(examples, eval_batch=batch)  # warm-up: cuDNN picks its algorithms
         reset_launch_counts()
         t = time.perf_counter()
-        got = ev.run(examples, eval_batch=4, collect=KITTI_PAIRS)
+        got = ev.run(examples, eval_batch=batch, collect=n)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         mine = {k: v for k, v in launch_counts().items() if v}
         ref_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, corr_impl="torch"))
         reset_launch_counts()
         want = Evaluator(ref_cfg, exp_dir, normalization=norm, device="cuda").run(
-            examples, eval_batch=4, collect=KITTI_PAIRS)
+            examples, eval_batch=batch, collect=n)
         torch.cuda.synchronize()
         plain_launches = {k: v for k, v in launch_counts().items() if v}
         # the predicted flows themselves: the AEE of a barely trained net is
         # set by the ground truth and cannot tell the two paths apart
-        flows, want_flows = (np.stack([e["flow"] for e in r["entries"]]) for r in (got, want))
+        flows, want_flows = (np.concatenate([e["flow"].ravel() for e in r["entries"]])
+                             for r in (got, want))
         rel = relative_l2(flows, want_flows)
         aee_rel = abs(got["aee"] - want["aee"]) / want["aee"]
-        print(f"real data Evaluator.run {dtype} kitti_2012 375x1242 batch 4: launches {mine} "
+        breakdown = " ".join(f"{k} {got[k]:.5f}" for k in ("aee_noc", "aee_occ") if k in got)
+        print(f"{what} Evaluator.run {dtype} batch {batch}: launches {mine} "
               f"(plain twin: {plain_launches}) flows relative_l2_vs_plain {rel:.3e} (tol "
               f"{tolerance}); AEE {got['aee']:.5f} vs plain {want['aee']:.5f} (relative "
-              f"{aee_rel:.3e}); Fl {got['fl']:.5f} vs {want['fl']:.5f}; aee_noc "
-              f"{got['aee_noc']:.5f} aee_occ {got['aee_occ']:.5f}; pairs/s "
-              f"{KITTI_PAIRS / wall:.3f} (host clock, incl. PNG decodes)", flush=True)
-        if mine != {kernel: batches} or plain_launches or got["n_gt"] != KITTI_PAIRS:
-            raise AssertionError(f"Evaluator.run {dtype}: launches {mine}, plain twin's "
+              f"{aee_rel:.3e}); Fl {got['fl']:.5f} vs {want['fl']:.5f}; {breakdown}; pairs/s "
+              f"{n / wall:.3f} (host clock, incl. PNG decodes)", flush=True)
+        if mine != {kernel: forwards} or plain_launches or got["n"] != n:
+            raise AssertionError(f"{what} Evaluator.run {dtype}: launches {mine}, plain twin's "
                                  f"{plain_launches}")
-        if flows.shape != (KITTI_PAIRS, *FRAME_HW, 2) or not np.isfinite(flows).all():
-            raise AssertionError(f"Evaluator.run {dtype}: bad flows {flows.shape}")
+        if not all(e["flow"].shape == (*e["im1"].shape[:2], 2) and np.isfinite(e["flow"]).all()
+                   for e in got["entries"]) or len(got["entries"]) != n:
+            raise AssertionError(f"{what} Evaluator.run {dtype}: bad flows")
         if not rel < tolerance:
-            raise AssertionError(f"Evaluator.run {dtype} disagrees with the plain correlation: "
-                                 f"flows relative L2 {rel}")
-        counts[dtype] = mine
-    return counts
+            raise AssertionError(f"{what} Evaluator.run {dtype} disagrees with the plain "
+                                 f"correlation: flows relative L2 {rel}")
+        results[dtype] = {**got, "launches": mine}
+    return results
 
 
 def run_heldout_short(tmp: Path, arm: str = "off", keep: bool = False) -> dict[str, int]:
@@ -1548,6 +1691,160 @@ def run_affine(tmp: Path) -> dict[str, dict[str, int]]:
     return {f"cli.train synthia_pretrain_c_affine.ini, {steps} steps": mine}
 
 
+def write_sintel_tree(data: Path) -> None:
+    """Under ``data``: MPI-Sintel's ``training`` layout, ``SINTEL_SCENES`` of
+    ``SINTEL_FRAMES`` frames each at the release's 436x1024 in both passes
+    (``clean``: a smooth texture moving a few pixels a frame; ``final``: the
+    same frames with noise), the ``.flo`` ground truth of each pair and its
+    occlusion mask (white where a pixel leaves the frame)."""
+    from unflow_tpu_torch.data.io import write_flo, write_image
+
+    h, w = SINTEL_HW
+    root = data / "sintel" / "training"
+    gen = torch.Generator().manual_seed(15)
+    rng = np.random.RandomState(16)
+    for s, scene in enumerate(SINTEL_SCENES):
+        dx, dy = 3 + 2 * s, 1 + s  # pixels a frame
+        for sub in ("clean", "final", "flow", "occlusions"):
+            (root / sub / scene).mkdir(parents=True)
+        coarse = torch.rand(1, 3, (h + dy * SINTEL_FRAMES) // 8 + 2,
+                            (w + dx * SINTEL_FRAMES) // 8 + 2, generator=gen)
+        tex = torch.nn.functional.interpolate(coarse, scale_factor=8, mode="bilinear")
+        tex = tex[0].permute(1, 2, 0).numpy()
+        # frame f shows the texture at (y + dy f, x + dx f): its content moves
+        # by (-dx, -dy) to the next frame
+        flow = np.broadcast_to(np.array([-dx, -dy], np.float32), (h, w, 2))
+        ys, xs = np.mgrid[0:h, 0:w]
+        occluded = ((xs - dx < 0) | (ys - dy < 0)).astype(np.float32)
+        for f in range(SINTEL_FRAMES):
+            clean = tex[dy * f : dy * f + h, dx * f : dx * f + w]
+            final = np.clip(clean + rng.normal(0.0, 0.03, clean.shape), 0.0, 1.0)
+            name = f"frame_{f + 1:04d}"
+            write_image(root / "clean" / scene / f"{name}.png", clean)
+            write_image(root / "final" / scene / f"{name}.png", final)
+            if f + 1 < SINTEL_FRAMES:
+                write_flo(root / "flow" / scene / f"{name}.flo", flow)
+                write_image(root / "occlusions" / scene / f"{name}.png",
+                            np.repeat(occluded[..., None], 3, -1))
+
+
+def write_middlebury_tree(data: Path) -> None:
+    """Under ``data``: Middlebury's ``other-data`` / ``other-gt-flow``, one
+    pair of the synthetic renderer (max_shift 8) per scene of
+    ``MIDDLEBURY_SCENES``, at that scene's published size."""
+    from unflow_tpu_torch.data.io import write_flo, write_image
+    from unflow_tpu_torch.data.synthetic import make_pair
+
+    root = data / "middlebury"
+    rng = np.random.RandomState(17)
+    for scene, (h, w) in MIDDLEBURY_SCENES.items():
+        (root / "other-data" / scene).mkdir(parents=True)
+        (root / "other-gt-flow" / scene).mkdir(parents=True)
+        im1, im2, flow = make_pair(rng, h, w, max_shift=8.0)
+        write_image(root / "other-data" / scene / "frame10.png", im1)
+        write_image(root / "other-data" / scene / "frame11.png", im2)
+        write_flo(root / "other-gt-flow" / scene / "flow10.flo", flow)
+
+
+def run_cli_eval(tmp: Path, ex: str, dataset: str, batch: int, pairs: int,
+                 variant: str | None = None) -> tuple[dict[str, int], str]:
+    """``cli.eval --ex <ex> --dataset <dataset>`` from ``tmp`` (which holds
+    ``log/``): its printed line must be finite over ``pairs`` pairs and it
+    must launch ``corr_fwd_bf16`` once per forward of up to ``batch``
+    same-size pairs (each dataset here has one frame size, or runs at batch
+    1). Returns its launch counts and its line."""
+    import io
+
+    from unflow_tpu_torch.cli.eval import main as eval_main
+    from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
+
+    argv = ["--ex", ex, "--dataset", dataset, "--batch", str(batch)]
+    argv += ["--variant", variant] if variant else []
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the experiment lives under ./log
+    try:
+        reset_launch_counts()
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = eval_main(argv)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    mine = {k: v for k, v in launch_counts().items() if v}
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"cli.eval {' '.join(argv)}: rc {rc} launches {mine} {time.perf_counter() - t:.2f} s: "
+          f"{line}", flush=True)
+    numbers = [float(x) for x in re.findall(r"=([-\d.naninf]+)", line)]
+    forwards = -(-pairs // batch)
+    if rc != 0 or mine != {"corr_fwd_bf16": forwards} or not np.isfinite(numbers).all():
+        raise AssertionError(f"cli.eval {dataset}: launches {mine}, line {line!r}")
+    if f"(n={pairs})" not in line:
+        raise AssertionError(f"cli.eval {dataset} did not evaluate {pairs} pairs: {line!r}")
+    return mine, line
+
+
+def run_sintel_middlebury(tmp: Path) -> dict[str, dict[str, int]]:
+    """The shipped paths of Sintel, SYNTHIA and Middlebury: configs/
+    synthia_pretrain_c.ini as shipped on the affine phase's SYNTHIA tree
+    (2 steps); a Sintel tree and configs/sintel_finetune_css.ini (csS at
+    384x768, batch 8, bf16, finetuned from the recipe's ``kitti_c`` and
+    ``kitti_cs``) through ``cli.train``; ``cli.eval --dataset sintel`` on
+    that experiment, clean and final; a Middlebury tree and ``cli.eval
+    --dataset middlebury --batch 1`` on ``kitti_c`` (its scenes differ in
+    size: one pair a forward). Each evaluation's flows are then held against
+    the plain-correlation twin in bf16 and f32. Returns the launch counts by
+    path."""
+    from unflow_tpu_torch.config import load_config
+    from unflow_tpu_torch.data import dataset_normalization, get_dataset
+
+    paths = {}
+    steps = 2
+    mine, records, wall, expected = run_cli_train(tmp, SYNTHIA_C_CONFIG, "synthia_c", steps,
+                                                  dataset="synthia", display_interval=1)
+    print(f"cli.train configs/synthia_pretrain_c.ini (decoding Loader) bf16 512x768 batch 8: "
+          f"steps {records[-1]['step']} launches {mine} loss "
+          f"{[round(r['loss'], 4) for r in records]} photo/scale0 "
+          f"{records[-1]['photo/scale0']:.5g} {wall:.2f} s", flush=True)
+    if mine != expected:
+        raise AssertionError(f"cli.train synthia_pretrain_c.ini: launches {mine}, not {expected}")
+    paths[f"cli.train synthia_pretrain_c.ini, {steps} steps"] = mine
+    shutil.rmtree(tmp / "log" / "ex" / "synthia_c")
+
+    write_sintel_tree(tmp / "data")
+    write_middlebury_tree(tmp / "data")
+    steps = SINTEL_STEPS
+    mine, records, wall, _ = run_cli_train(tmp, SINTEL_CONFIG, "sintel_css", steps,
+                                           dataset="sintel", display_interval=2)
+    print(f"cli.train configs/sintel_finetune_css.ini (csS from kitti_c, kitti_cs; decoding "
+          f"Loader) bf16 384x768 batch 8: steps {records[-1]['step']} launches {mine} loss "
+          f"{[round(r['loss'], 4) for r in records]} pairs/s {records[-1]['pairs_per_sec']:.3f} "
+          f"{wall:.2f} s", flush=True)
+    if mine != remat_launches("csS", steps, False):
+        raise AssertionError(f"cli.train sintel_finetune_css.ini: launches {mine}")
+    paths[f"cli.train sintel_finetune_css.ini, {steps} steps"] = mine
+
+    pairs = len(SINTEL_SCENES) * (SINTEL_FRAMES - 1)
+    evals = [("sintel_css", "sintel", variant, SINTEL_EVAL_BATCH, pairs)
+             for variant in ("clean", "final")]
+    evals.append(("kitti_c", "middlebury", None, 1, len(MIDDLEBURY_SCENES)))
+    for ex, dataset, variant, batch, n in evals:
+        what = f"cli.eval {dataset}{'/' + variant if variant else ''} --ex {ex} --batch {batch}"
+        paths[what] = run_cli_eval(tmp, ex, dataset, batch, n, variant)[0]
+        exp_dir = tmp / "log" / "ex" / ex
+        ds = get_dataset(dataset, tmp / "data", **({"render_pass": variant} if variant else {}))
+        # as cli.eval normalizes: the training dataset's constants, else the eval set's
+        norm = (dataset_normalization(load_config(exp_dir / "config.ini").train.dataset)
+                or ds.normalization)
+        examples = ds.eval_examples()
+        for dtype, got in hold_eval_twins(f"{dataset}{'/' + variant if variant else ''}",
+                                          exp_dir, examples, norm, batch).items():
+            paths[f"Evaluator.run {dtype} {dataset}{'/' + variant if variant else ''} --ex {ex}, "
+                  f"{n} pairs, batch {batch}"] = got["launches"]
+    shutil.rmtree(tmp / "log" / "ex" / "sintel_css")
+    return paths
+
+
 def run_summaries(tmp: Path) -> dict[str, dict[str, int]]:
     """``cli.train`` (configs/kitti_unsup_c.ini, synthetic, 320x1152, batch 8,
     bf16) with ``tensorboard`` and an image summary every 2 steps, read back
@@ -1789,10 +2086,12 @@ def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dic
             "f32_step": ("float32", 1, True)}
     profile_step = DDP_STEPS - 1  # the last step of the bf16 run, profiled
 
-    def job(name, ranks, dtype="bfloat16", steps=4, deterministic=True, config=css_ini, **extra):
+    def job(name, ranks, dtype="bfloat16", steps=4, deterministic=True, config=css_ini,
+            sets=(), **extra):
         argv = ["--config", str(config), "--ex", f"ddp_{name}_{ranks}", "--set",
                 f"compute_dtype={dtype}", "--set", f"num_iters={steps}", "--device",
                 "cuda" if ranks == 1 or nccl2 else "cuda:0"]
+        argv += [x for kv in sets for x in ("--set", kv)]
         if config == ini:  # one checkpoint, at the end
             argv += ["--set", f"save_interval={steps}"]
         return {"name": name, "argv": argv, "deterministic": deterministic, **extra}
@@ -1804,6 +2103,8 @@ def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dic
                                                              if n == "bf16" else {}))
                                 for n, r in runs.items()] + [
         job("css", 2), job("css_split", 2, stop_after=2), job("css_split", 2),
+        # one bf16 step with per-stage rematerialization, against one rank without
+        job("bf16_step_remat", 2, "bfloat16", 1, False, config=ini, sets=["remat=true"]),
     ], "cuda" if nccl2 else "cuda:0", None if nccl2 else "gloo")
 
     paths = {}
@@ -1824,11 +2125,19 @@ def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dic
                     raise AssertionError(f"{res['name']}: launches {per_rank}, want {expected}")
                 paths[f"torchrun {ranks} rank(s), cli.train kitti_raw packed {dtype}, "
                       f"{steps} step(s)"] = total
+            elif res["name"] == "bf16_step_remat":
+                expected = remat_launches("C", 1, True)
+                if any(c != expected for c in per_rank):
+                    raise AssertionError(f"{res['name']}: launches {per_rank}, want {expected}")
+                paths[f"torchrun {ranks} ranks, cli.train kitti_raw packed bfloat16 "
+                      f"--set remat=true, 1 step"] = total
 
     start = config_init(ini)
     for name, tol in (("bf16", 2e-2), ("bf16_step", 2e-2), ("f32_step", 1e-4)):
         hold_run(tmp, f"distributed {name}: 2 ranks against 1, global batch 8",
                  f"ddp_{name}_2", f"ddp_{name}_1", runs[name][1], tol, start)
+    hold_run(tmp, "distributed bf16_step_remat: 2 ranks with remat against 1 rank without, "
+             "global batch 8", "ddp_bf16_step_remat_2", "ddp_bf16_step_1", 1, 2e-2, start)
     for ranks in (1, 2):
         # after the first step's warm-up, before the profiled one
         rec = _records(tmp, f"ddp_bf16_{ranks}")[1:profile_step]
@@ -1853,7 +2162,8 @@ def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dic
     if losses[0] != losses[1] or sorted(losses[0]) != [1, 2, 3, 4] or diff != 0:
         raise AssertionError("the resumed 2-rank csS run is not identical to the uninterrupted one")
     # the one-rank runs are run_spatial's references too
-    for ex in [f"ddp_{n}_2" for n in runs] + ["ddp_css_2", "ddp_css_split_2"]:
+    for ex in [f"ddp_{n}_2" for n in runs] + ["ddp_css_2", "ddp_css_split_2",
+                                              "ddp_bf16_step_remat_2"]:
         shutil.rmtree(tmp / "log" / "ex" / ex)
     return paths, {res["name"]: res for res in one[0]}
 
@@ -1915,7 +2225,10 @@ def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
             "css": ("bfloat16", 1, False, css_ini, {}, 2, "css"),
             "disocc": ("bfloat16", 1, False, ini, {"mask_occlusion": "disocc"}, 2, "disocc"),
             "f32_grid": ("float32", 1, True, ini, {}, 4, "f32_step"),
-            "f32_uneven": ("float32", 1, True, ini, {"spatial_shards": 4}, 4, "f32_step")}
+            "f32_uneven": ("float32", 1, True, ini, {"spatial_shards": 4}, 4, "f32_step"),
+            # per-stage rematerialization: the recompute re-issues the halo
+            # exchanges inside the backward pass
+            "bf16_step_remat": ("bfloat16", 1, False, ini, {"remat": "true"}, 2, "bf16_step")}
 
     def job(name):
         dtype, steps, deterministic, config, extra, ranks, _ = runs[name]
@@ -1946,7 +2259,9 @@ def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
         dtype, steps, _, config, extra, ranks, ref = runs[name]
         counts = [r["launches"] for r in per_rank]
         kernels = ["fwd"] if name == "css" else ["fwd", "bwd_f1", "bwd_f2"]
-        expected = {kernel_name(op, DTYPES[dtype], 256, p, 2): steps for op in kernels}
+        # under remat the forward runs again in the backward pass
+        expected = {kernel_name(op, DTYPES[dtype], 256, p, 2):
+                    steps * (2 if op == "fwd" and "remat" in extra else 1) for op in kernels}
         total = {k: sum(c.get(k, 0) for c in counts) for k in expected}
         shards = extra.get("spatial_shards", 2)
         print(f"spatial {name} ({ranks} ranks, {ranks // shards} data x {shards} spatial): rc "
@@ -2109,6 +2424,10 @@ def main() -> int:
     from unflow_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        print(f"phase {what}: done at {time.perf_counter() - t0:.1f} s", flush=True)
+
     sources = sorted(p.stem for p in build.CSRC_DIR.glob("*.cu"))
     logs = build.build(sources)
     print(f"build {sources}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2118,6 +2437,7 @@ def main() -> int:
 
     report = check_kernels()
     check_function()
+    lap("build and kernels")
 
     torch.backends.cudnn.allow_tf32 = False  # float32 means float32 in this check
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2125,6 +2445,7 @@ def main() -> int:
         report["corr_fwd_bf16"]["launches"] = run_cli(Path(tmp))
     run_eval("bfloat16", "corr_fwd_bf16", 2e-2)
     report["corr_fwd_f32"]["launches"], _ = run_eval("float32", "corr_fwd_f32", 1e-4)
+    lap("serving")
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -2144,8 +2465,10 @@ def main() -> int:
         run_train_twin(tmp, "bfloat16", 8, 2e-2)
         run_train_twin(tmp, "float32", 2, 1e-4, control=True)
         run_train_twin(tmp, "bfloat16", 8, 2e-2, corr_stride=4)
-        ready_pairs_per_s = run_train_timed(tmp)
+        c_plain = run_train_timed(tmp)
+        ready_pairs_per_s = c_plain["pairs_per_s"]
         run_train_profiled_f32(tmp)
+        lap("training")
 
         run_recipe(tmp)
         run_resume(tmp)
@@ -2156,19 +2479,25 @@ def main() -> int:
             run_train_twin(tmp, "float32", 2, 1e-4, config=CSS_CONFIG, seed=seed, control=True,
                            flownet="CSS", train_all=True, finetune=())
         run_cudnn_spread(tmp)
-        run_train_timed(tmp, CSS_CONFIG, finetune=())
-        run_train_timed(tmp, CSS_CONFIG, flownet="CSS", train_all=True, finetune=())
+        lap("the cascades")
+        # the timed csS and CSS runs of the cascades, each beside its run with remat
+        paths = run_remat(tmp, c_plain)
+        # remat recomputes the same ops on the same inputs: bf16 C equal, f32
+        # CSS within the gathers' atomics (the control reads about 1e-7)
+        run_train_twin(tmp, "bfloat16", 8, 0, remat=True)
+        run_train_twin(tmp, "float32", 2, 1e-6, config=CSS_CONFIG, remat=True, flownet="CSS",
+                       train_all=True, finetune=())
+        lap("remat")
 
         write_kitti_trees(tmp / "data")
-        paths = {
-            "cli.train kitti_raw, packed, 12 steps, eval every 6": run_real_train(
-                tmp, ready_pairs_per_s),
-        }
+        paths["cli.train kitti_raw, packed, 12 steps, eval every 6"] = run_real_train(
+            tmp, ready_pairs_per_s)
         for dtype, counts in run_real_eval(tmp).items():
             paths[f"Evaluator.run {dtype} kitti_2012, 8 pairs, batch 4"] = counts
         paths["heldout, 4 steps, 2 evals of 8 batches"] = run_heldout_short(tmp, keep=True)
         paths.update(run_probes(tmp))
         shutil.rmtree(tmp / "heldout")
+        lap("real data, held-out, probes")
 
         paths.update(run_supervised(tmp))
         run_train_twin(tmp, "bfloat16", 8, 2e-2, supervised="dense")
@@ -2176,6 +2505,7 @@ def main() -> int:
         run_train_twin(tmp, "float32", 2, 1e-4, supervised="sparse", control=True)
         run_train_twin(tmp, "bfloat16", 8, 2e-2, mask_occlusion="disocc")
         run_disocc_spread(tmp)
+        lap("supervised, disocc")
         paths.update(run_affine(tmp))
         paths["heldout --arms on, 4 steps, 2 evals of 8 batches"] = run_heldout_short(
             tmp, "on", keep=True)
@@ -2187,10 +2517,15 @@ def main() -> int:
                   "(segment processes)"] = run_cascade(tmp)
             paths["longrun, 10 steps in 3 segment processes"] = longrun.result()
         shutil.rmtree(tmp / "heldout")
+        lap("affine, affine_on, cascade held-out, long run")
+        paths.update(run_sintel_middlebury(tmp))
+        lap("synthia_c, sintel, middlebury")
         paths.update(run_summaries(tmp))
         ddp_paths, one_rank = run_distributed(tmp)
         paths.update(ddp_paths)
+        lap("summaries, distributed")
         paths.update(run_spatial(tmp, one_rank))
+        lap("spatial")
         run_flops(ready_pairs_per_s)
         run_profile_hooks(tmp, ready_pairs_per_s)
         run_native(tmp)

@@ -1,8 +1,10 @@
 """The port's FLOP count (``unflow_tpu_torch/utils/flops.py``) against the JAX
 package's ``matmul_flops`` of its traced train step: equal, FLOP for FLOP,
 for C, S, cS, CSS with ``train_all`` and supervised S at 64x128, batch 2, and
-for UnFlow-C as shipped (320x1152, batch 8, bf16); linear in the batch;
-single ops counted as JAX counts them; and the peak table."""
+for UnFlow-C as shipped (320x1152, batch 8, bf16); with ``remat`` (C, CSS
+with ``train_all``) equal site for site, the recomputed forwards included;
+linear in the batch; single ops counted as JAX counts them; and the peak
+table."""
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +40,12 @@ def _sds(tree):
 def jax_step_jaxpr(cfg):
     """The jaxpr of the JAX package's train step of ``cfg``, traced on
     shapes alone."""
+    fn, args = _jax_step(cfg)
+    return jax.make_jaxpr(fn)(*args).jaxpr
+
+
+def _jax_step(cfg):
+    """The JAX package's train step of ``cfg`` and its arguments as shapes."""
     t = cfg.train
     model = build_model_jax(cfg)
     sample = jnp.zeros((1, t.height, t.width, 3), jnp.float32)
@@ -50,7 +58,7 @@ def jax_step_jaxpr(cfg):
     if t.supervised:
         batch["flow"] = jax.ShapeDtypeStruct((t.batch_size, t.height, t.width, 2), jnp.float32)
     rng = jax.ShapeDtypeStruct((2,), jnp.uint32)
-    return jax.make_jaxpr(make_train_step_jax(model, tx, cfg))(state, batch, rng).jaxpr
+    return make_train_step_jax(model, tx, cfg), (state, batch, rng)
 
 
 def inside_pallas(jaxpr) -> int:
@@ -96,6 +104,28 @@ def test_train_step_flops_equal_jax(case):
     mine = train_step_flops(cfg, by_site=True)
     want = flops_jax._jaxpr_flops(jax_step_jaxpr(cfg_jax))
     assert sum(mine.values()) == want, sorted(mine.items(), key=lambda kv: -kv[1])[:12]
+
+
+REMAT_STEPS = {"C_remat": ("C", {}), "CSS_train_all_remat": ("CSS", {"train_all": True})}
+
+
+@pytest.mark.parametrize("case", list(REMAT_STEPS))
+def test_remat_step_flops_equal_jax_site_for_site(case):
+    """With ``remat`` each stage's forward runs again in the backward pass:
+    fwd + refwd + the gradients, as JAX counts through ``jax.checkpoint``.
+    Every conv site equal, key for key, the resizes as in
+    ``test_breakdown_sites_equal_the_jax_scripts`` (two contractions a site in
+    JAX, one site in the port), and the total."""
+    spec, overrides = REMAT_STEPS[case]
+    cfg, cfg_jax = _configs(spec, remat=True, **overrides)
+    mine = train_step_flops(cfg, by_site=True)
+    fn, args = _jax_step(cfg_jax)
+    want = flops_jax.matmul_flops_by_site(fn, *args)
+    convs = [{k: v for k, v in sites.items() if k.startswith("conv ")} for sites in (mine, want)]
+    assert convs[0] == convs[1]
+    rest = [sum(v for k, v in sites.items() if not k.startswith("conv ")) for sites in (mine, want)]
+    assert rest[0] == rest[1]
+    assert sum(mine.values()) == sum(want.values())
 
 
 def test_shipped_unflow_c_step_flops_equal_jax():

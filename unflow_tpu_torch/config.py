@@ -21,8 +21,10 @@ to ``torch``/``cuda`` --, ``max_displacement``, ``corr_stride``), the input
 ``border_ratio``) and the augmentation (``aug_swap_prob``,
 ``aug_photometric``, ``aug_hflip``, ``aug_noise_stddev`` and the affine
 ranges ``aug_translate``, ``aug_rotate``, ``aug_zoom_min``,
-``aug_zoom_max``, ``aug_rel_*``). ``conv_impl``, ``deconv_impl`` and
-``remat`` select XLA lowerings on the TPU; they are accepted and ignored.
+``aug_zoom_max``, ``aug_rel_*``), and ``remat`` (per-stage
+rematerialization, ``models/flownet.py::FlowNetStack``). ``conv_impl`` and
+``deconv_impl`` select XLA lowerings on the TPU; they are accepted and
+ignored.
 ``num_devices`` is 0 (as many GPUs as ``torchrun`` started processes) or
 that number (``parallel/``); ``spatial_shards`` (W-sharding) divides the
 processes into a (data, spatial) grid and needs a ``width`` that is a
@@ -91,7 +93,7 @@ class TrainConfig:
     corr_impl: str = "auto"
     deconv_impl: str = "native"  # accepted, ignored
     conv_impl: str = "native"  # accepted, ignored
-    remat: bool = False  # accepted, ignored
+    remat: bool = False  # recompute each stage's activations in the backward pass
     num_devices: int = 0
     spatial_shards: int = 1
     seed: int = 0

@@ -30,6 +30,7 @@ def build_model(cfg: Config, device: torch.device | str | None) -> FlowNetStack:
         corr_impl=impl_from_config(t.corr_impl),
         max_displacement=t.max_displacement,
         corr_stride=t.corr_stride,
+        remat=t.remat,
     )
     if device is None:
         return model

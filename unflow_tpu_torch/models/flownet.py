@@ -35,12 +35,15 @@ upsampling one coarse column each side.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unflow_tpu_torch.ops import correlation
 from unflow_tpu_torch.ops.conv2d import Conv2dSame, conv_like_jax
@@ -229,11 +232,17 @@ class FlowNetStack(nn.Module):
     are frozen: their flows are detached here, and the trainer gives their
     parameters no gradient. Each stage is the submodule ``stage{i}_{C|S}``.
     Returns one 5-scale flow list per stage, finest first, in network units.
-    ``remat`` (per-stage rematerialization in the JAX package) is not
-    ported."""
+
+    ``remat`` (the JAX package's ``nn.remat`` of each stage): with grad
+    enabled, each stage runs under ``torch.utils.checkpoint``, which keeps only
+    the stage's inputs and recomputes its activations in the backward pass,
+    one more forward of each stage that gets a gradient for the memory of its
+    activations. The parameters, the outputs and the gradients are those
+    without it."""
 
     def __init__(self, spec: str = "C", compute_dtype: torch.dtype = torch.float32,
-                 corr_impl: str | None = None, max_displacement: int = 20, corr_stride: int = 2):
+                 corr_impl: str | None = None, max_displacement: int = 20, corr_stride: int = 2,
+                 remat: bool = False):
         super().__init__()
         if not spec or spec[0].upper() not in ("C", "S"):
             raise ValueError(f"bad stack spec {spec!r}")
@@ -243,6 +252,7 @@ class FlowNetStack(nn.Module):
             )
         self.spec = spec
         self.compute_dtype = compute_dtype
+        self.remat = remat
         for i, ch in enumerate(spec):
             if i == 0 and ch.upper() == "C":
                 net = FlowNetC(compute_dtype, max_displacement, corr_stride, corr_impl)
@@ -260,6 +270,8 @@ class FlowNetStack(nn.Module):
         flow_prev = None
         for i, ch in enumerate(self.spec):
             net = getattr(self, f"stage{i}_{ch.upper()}")
+            if self.remat and torch.is_grad_enabled():
+                net = functools.partial(_checkpointed, net)
             if i == 0:
                 if ch.upper() == "C":
                     flows = net(im1, im2, pair_flipped_im2)
@@ -279,6 +291,17 @@ class FlowNetStack(nn.Module):
             stage_flows.append(flows)
             flow_prev = full_res_flow(flows, h, w)
         return stage_flows
+
+
+def _checkpointed(net: nn.Module, *args) -> list[torch.Tensor]:
+    """``net(*args)`` with its activations recomputed in the backward pass.
+    Non-reentrant, as DistributedDataParallel's gradient hooks need. FlowNet
+    draws no random numbers, so no RNG state is kept for the recompute. The
+    recompute may run on autograd's device thread, which does not see the
+    caller's W-sharding context: it re-enters the one of the forward."""
+    ctx = spatial.current()
+    return checkpoint(net, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), spatial.within(ctx)))
 
 
 def _truncated_normal(shape: torch.Size, std: float, generator: torch.Generator) -> torch.Tensor:

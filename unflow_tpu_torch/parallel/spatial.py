@@ -32,6 +32,7 @@ and on CUDA tensors, as NCCL does, and gloo has no CUDA ``send``/``recv``.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 
@@ -222,6 +223,19 @@ class SpatialContext:
 def current() -> SpatialContext | None:
     """The context the caller runs in, None outside one."""
     return _CURRENT.get()
+
+
+@contextlib.contextmanager
+def within(ctx: SpatialContext | None):
+    """Run the body in ``ctx`` (None: outside any), whatever the caller's
+    context, and restore the caller's after it: for work that runs on
+    another thread than the one that entered ``ctx``, as a recompute in
+    autograd's backward on a CUDA device thread."""
+    token = _CURRENT.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _CURRENT.reset(token)
 
 
 def global_width(w: int) -> int:
@@ -442,4 +456,5 @@ __all__ = [
     "split_columns",
     "spatial_size",
     "sum_over_spatial",
+    "within",
 ]
