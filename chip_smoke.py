@@ -219,8 +219,9 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 sites sum to its 5,521,148,095,680), and the MFU of phase 4's
                 step against ``peak_flops()`` (none for an unknown card).
  20. profile hooks -- ``utils.profiling.trace`` around two bf16 train steps: the
-                trace reads back and names the three tensor-core kernels;
-                ``StepTimer``'s rate beside phase 4's pairs/s.
+                trace reads back and names the three tensor-core kernels and
+                ``unflow.train.loss``; the spans' host ms a step beside phase
+                4's pairs/s.
  21. native decode -- ``UNFLOW_NATIVE=1``: the C++ sidecar builds into
                 ``_build/``; the KITTI trees' frames and 16-bit flows and a
                 ``Loader`` epoch equal the PIL / numpy path's bit for bit.
@@ -2336,23 +2337,21 @@ def run_flops(ready_pairs_per_s: float) -> None:
 
 def run_profile_hooks(tmp: Path, ready_pairs_per_s: float) -> None:
     """``utils.profiling.trace`` around two bf16 train steps writes a trace
-    that reads back and names the three tensor-core correlation kernels;
-    ``StepTimer``'s rate over those steps beside the Trainer's."""
+    that reads back and names the three tensor-core correlation kernels and
+    the port's spans; the spans' host time a step beside the Trainer's rate."""
     from unflow_tpu_torch.train import Trainer
-    from unflow_tpu_torch.utils.profiling import StepTimer, trace
+    from unflow_tpu_torch.utils import profiling
 
     cfg = train_config(tmp)
     trainer = Trainer(cfg, tmp / "profile_hooks", itertools.cycle(host_batches(8, 2)),
                       device="cuda")
     for _ in range(3):  # warm-up
         trainer.train_step(next(trainer.batches))
-    timer = StepTimer()
-    with trace(tmp / "profile_hooks" / "trace") as prof:
-        timer.start()
+    profiling.reset()
+    with profiling.trace(tmp / "profile_hooks" / "trace") as prof:
         for _ in range(2):
-            logs = trainer.train_step(next(trainer.batches))
-            timer.tick(8)
-        rate = timer.rate(logs["loss"])
+            trainer.train_step(next(trainer.batches))
+    spans = profiling.summary()["spans"]
     path = tmp / "profile_hooks" / "trace" / "trace.json"
     events = json.loads(path.read_text())["traceEvents"]
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
@@ -2361,8 +2360,11 @@ def run_profile_hooks(tmp: Path, ready_pairs_per_s: float) -> None:
     print(f"profile hooks: trace.json {path.stat().st_size / 2**20:.1f} MiB, {len(events)} events, "
           f"{len(kernels)} kernel names, correlation kernels {[k[:60] for k in mine]}; "
           f"{len(prof.key_averages())} ops and kernels by name", flush=True)
-    print(f"profile hooks: StepTimer {rate:.3f} pairs/s over 2 steps under the profiler; the "
+    per_step = {k: f"{v['self_ns'] / 2e6:.3f}" for k, v in spans.items()}
+    print(f"profile hooks: host ms a step by span (self, under the profiler) {per_step}; the "
           f"Trainer's pairs_per_sec (phase 4, unprofiled) {ready_pairs_per_s:.3f}", flush=True)
+    if "unflow.train.loss" not in {e.get("name") for e in events}:
+        raise AssertionError("the trace names no unflow.train.loss span")
     names = ("corr_fwd_mma_kernel", "corr_bwd_f1_mma_kernel", "corr_bwd_f2_mma_kernel")
     if not all(any(n in k for k in mine) for n in names):
         raise AssertionError(f"the trace names no tensor-core correlation kernel: {mine}")

@@ -1,0 +1,8 @@
+"""Host ms a training step in the program's span ``unflow.train.forward``
+(its self time over the profiled stretch, per ``unflow.train.step``)."""
+
+from flowbench.program import span_ms
+
+
+def read(run):
+    return span_ms(run, "train", "unflow.train.forward", "unflow.train.step")

@@ -24,6 +24,7 @@ from unflow_tpu_torch.data.io import (
     read_image_u8,
     read_kitti_png_flow,
 )
+from unflow_tpu_torch.utils.profiling import count, span
 
 
 @dataclass(frozen=True)
@@ -202,6 +203,12 @@ class Loader:
     examples are shuffled per epoch with a per-epoch PRNG; worker threads
     decode *pre-assigned* indices so thread scheduling cannot reorder the
     stream (resume-safe, SURVEY.md §5 failure-detection row).
+
+    Under a ``torch.profiler`` profile the consumer's wait for the next batch
+    is the span ``unflow.loader.wait`` and the producer's gather or assembly
+    of a batch, on its own thread, ``unflow.loader.gather``; the counters
+    ``loader.gets`` and ``loader.starved`` (the gets that found no batch
+    ready) are always on (``utils/profiling.py``).
     """
 
     def __init__(
@@ -319,10 +326,11 @@ class Loader:
                     if sel is None:
                         safe_put(None)
                         return
-                    batch = self._packed.gather(sel, self.supervised)
-                    if self.image_dtype == "float32":
-                        for k in ("im1", "im2"):
-                            batch[k] = batch[k].astype(np.float32) / 255.0
+                    with span("unflow.loader.gather"):
+                        batch = self._packed.gather(sel, self.supervised)
+                        if self.image_dtype == "float32":
+                            for k in ("im1", "im2"):
+                                batch[k] = batch[k].astype(np.float32) / 255.0
                     if not safe_put(batch):
                         return
             except Exception as e:
@@ -363,18 +371,19 @@ class Loader:
                         if not pending:
                             safe_put(None)
                             return
-                        items = [f.result() for f in pending.popleft()]
-                        # Keys common to EVERY item: optional fields
-                        # (noc_mask exists only where the file does) must
-                        # not crash the stack when a batch mixes
-                        # examples, nor depend on which example lands at
-                        # index 0.
-                        keys = set(items[0])
-                        for it in items[1:]:
-                            keys &= set(it)
-                        batch = {
-                            k: np.stack([it[k] for it in items]) for k in keys
-                        }
+                        with span("unflow.loader.gather"):
+                            items = [f.result() for f in pending.popleft()]
+                            # Keys common to EVERY item: optional fields
+                            # (noc_mask exists only where the file does)
+                            # must not crash the stack when a batch mixes
+                            # examples, nor depend on which example lands
+                            # at index 0.
+                            keys = set(items[0])
+                            for it in items[1:]:
+                                keys &= set(it)
+                            batch = {
+                                k: np.stack([it[k] for it in items]) for k in keys
+                            }
                         if not safe_put(batch):
                             return
             except Exception as e:  # propagate decode errors to the consumer
@@ -387,7 +396,11 @@ class Loader:
         thread.start()
         try:
             while True:
-                batch = q.get()
+                count("loader.gets")
+                if q.empty():
+                    count("loader.starved")
+                with span("unflow.loader.wait"):
+                    batch = q.get()
                 if batch is None:
                     return
                 if isinstance(batch, Exception):

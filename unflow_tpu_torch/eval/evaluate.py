@@ -28,6 +28,7 @@ from unflow_tpu_torch.eval.flow_viz import flow_error_image, flow_to_color
 from unflow_tpu_torch.eval.metrics import flow_error_avg, outlier_fraction
 from unflow_tpu_torch.models import DTYPES, FlowNetStack, build_model, full_res_flow
 from unflow_tpu_torch.train.checkpoint import restore_params
+from unflow_tpu_torch.utils.profiling import count, span
 
 
 def predict_flow(
@@ -74,16 +75,34 @@ class Evaluator:
         return self.predict_batch(im1[None], im2[None])[0]
 
     def predict_batch(self, ims1: np.ndarray, ims2: np.ndarray) -> np.ndarray:
-        """Same-shape pairs (B, H, W, 3) -> (B, H, W, 2); pads to /64."""
+        """Same-shape pairs (B, H, W, 3) -> (B, H, W, 2); pads to /64.
+
+        Under a ``torch.profiler`` profile the call is the span
+        ``unflow.infer.request`` (unit: the request's number) with the
+        children ``unflow.infer.pad`` (the padding and the float32 cast on
+        the host), ``unflow.infer.h2d`` (both frames' copies in),
+        ``unflow.infer.forward`` (the network's dispatch) and
+        ``unflow.infer.d2h`` (``flow.cpu()``: the wait for the device's
+        queued work and the copy back). The counters ``infer.requests``,
+        ``infer.h2d_bytes`` and ``infer.d2h_bytes`` are always on."""
         b, h, w, _ = ims1.shape
         hp = -(-h // 64) * 64
         wp = -(-w // 64) * 64
         pad = ((0, 0), (0, hp - h), (0, wp - w), (0, 0))
-        with torch.inference_mode():
-            p1 = torch.from_numpy(np.pad(ims1, pad).astype(np.float32)).to(self.device)
-            p2 = torch.from_numpy(np.pad(ims2, pad).astype(np.float32)).to(self.device)
-            flow = predict_flow(self.model, p1, p2, self.normalization)
-            return flow.cpu().numpy()[:, :h, :w]
+        with span("unflow.infer.request", count("infer.requests")), torch.inference_mode():
+            with span("unflow.infer.pad"):
+                a1 = np.pad(ims1, pad).astype(np.float32)
+                a2 = np.pad(ims2, pad).astype(np.float32)
+            with span("unflow.infer.h2d"):
+                p1 = torch.from_numpy(a1).to(self.device)
+                p2 = torch.from_numpy(a2).to(self.device)
+            count("infer.h2d_bytes", a1.nbytes + a2.nbytes)
+            with span("unflow.infer.forward"):
+                flow = predict_flow(self.model, p1, p2, self.normalization)
+            with span("unflow.infer.d2h"):
+                flow = flow.cpu()
+            count("infer.d2h_bytes", flow.numel() * flow.element_size())
+            return flow.numpy()[:, :h, :w]
 
     def run(
         self,

@@ -23,9 +23,10 @@ no fallback: a launch that fails raises, and nothing switches kernels on an
 error.
 
 :class:`CorrelationFunction` takes the place of the ``custom_vjp``
-``correlation_pallas``. Each launch adds one to its kernel's entry in
-:func:`launch_counts`, so a run can show that its path went through the
-kernels. CUDA tensors go through a kernel or the call raises; only CPU
+``correlation_pallas``. Each launch adds one to its kernel's counter in
+the port's registry (``utils/profiling.py::count``), which
+:func:`launch_counts` reads, so a run can show that its path went through
+the kernels. CUDA tensors go through a kernel or the call raises; only CPU
 tensors take the plain versions of :mod:`unflow_tpu_torch.ops.correlation`.
 """
 
@@ -49,6 +50,7 @@ from unflow_tpu_torch.ops.correlation_banded import (
     tensor_core_geometry_ok,
     tile_count,
 )
+from unflow_tpu_torch.utils import profiling
 
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # op -> source under csrc/ of its FP32-core kernel
@@ -64,7 +66,6 @@ for _op, _source in SOURCES.items():
     KERNELS[f"corr_{_op}_bf16_simt"] = (_source, f"unflow_corr_{_op}_bf16_simt")
     KERNELS[f"corr_{_op}_bf16"] = (TENSOR_CORE_SOURCES[_op], f"unflow_corr_{_op}_bf16")
 _TENSOR_CORE_KERNELS = frozenset(f"corr_{op}_bf16" for op in TENSOR_CORE_SOURCES)
-_LAUNCHES = {name: 0 for name in KERNELS}
 
 
 def tensor_core_ok(dtype: torch.dtype, c: int, max_displacement: int, stride: int) -> bool:
@@ -98,12 +99,13 @@ def _named_kernel(
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    """Launches of each kernel since the last :func:`reset_launch_counts`."""
+    counted = profiling.counts()
+    return {name: counted.get(name, 0) for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    profiling.reset_counts(KERNELS)
 
 
 def _symbol(name: str):
@@ -177,7 +179,7 @@ def _launch(
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    _LAUNCHES[name] += 1
+    profiling.count(name)
     return out
 
 

@@ -76,6 +76,7 @@ from unflow_tpu_torch.train.checkpoint import CheckpointManager, init_stages_fro
 from unflow_tpu_torch.train.schedule import piecewise_halving
 from unflow_tpu_torch.train.summaries import ImageSummaryWriter
 from unflow_tpu_torch.utils import MetricsLogger
+from unflow_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -214,8 +215,10 @@ def make_train_step(
         # an NHWC -> NCHW view: channels_last memory, what the convs want
         return x.permute(0, 3, 1, 2)
 
-    def train_step(state: TrainState, batch: dict) -> dict:
-        device = batch["im1"].device
+    def augment(state: TrainState, batch: dict, device) -> list:
+        """The step's draws applied to the batch: the normalized network
+        inputs, the un-jittered frames the loss sees, and the ground truth
+        and mask of supervised training, as ``(B, C, H, W)`` views."""
         generator = torch.Generator(device=device).manual_seed(_step_seed(t.seed, state.step))
         given = draws(state.step) if draws is not None else {}
 
@@ -256,70 +259,81 @@ def make_train_step(
             p1, p2 = im1, im2
         n1 = nchw(normalize(p1, mean, stddev))
         n2 = nchw(normalize(p2, mean, stddev))
-        im1, im2 = nchw(im1), nchw(im2)
         gt = nchw(gt[0]) if t.supervised else None
         mask = None if mask is None else nchw(mask)
+        return [n1, n2, nchw(im1), nchw(im2), gt, mask]
+
+    def train_step(state: TrainState, batch: dict) -> dict:
+        device = batch["im1"].device
+        with span("unflow.train.augment"):
+            frames = augment(state, batch, device)
+            if grid is not None:
+                # every rank of the group augmented the same full frames:
+                # each keeps its W-slab of them
+                ctx = SpatialContext.of(grid, t.width)
+                frames = [None if x is None else slab(x, ctx) for x in frames]
         if grid is None:
-            return finish(state, n1, n2, im1, im2, gt, mask, device)
-        # every rank of the group augmented the same full frames: each keeps
-        # its W-slab of them
-        ctx = SpatialContext.of(grid, t.width)
-        n1, n2, im1, im2 = (slab(x, ctx) for x in (n1, n2, im1, im2))
-        gt, mask = (None if x is None else slab(x, ctx) for x in (gt, mask))
+            return finish(state, *frames, device)
         with ctx:
-            return finish(state, n1, n2, im1, im2, gt, mask, device)
+            return finish(state, *frames, device)
 
     def finish(state, n1, n2, im1, im2, gt, mask, device) -> dict:
         """The network, the loss, its backward and Adam on the augmented
         ``(B, C, H, W)`` frames (a W-slab of them inside a context)."""
         model, optimizer = state.model, state.optimizer
         logs: dict[str, torch.Tensor] = {}
-        if t.supervised:
-            stages = model(n1, n2)
-            loss, logs = supervised_loss(stages[-1], gt, mask)
-        else:
-            # One apply at 2x batch gives forward AND backward flow: rows 2i
-            # and 2i+1 are the (fw, bw) pair of example i, and the second
-            # argument is the first with each pair swapped, so the tower runs
-            # once.
-            stages = model(interleave(n1, n2), interleave(n2, n1), pair_flipped_im2=True)
-            stage_ids = range(len(stages)) if t.train_all else [len(stages) - 1]
-            loss = torch.zeros((), dtype=torch.float32, device=device)
-            for si in stage_ids:
-                stage_total, stage_logs = unsupervised_loss(
-                    im1, im2, [f[0::2] for f in stages[si]], [f[1::2] for f in stages[si]],
-                    weights=weights, mask_occlusion=t.mask_occlusion,
-                    border_ratio=t.border_ratio,
-                )
-                loss = loss + stage_total
-                if len(stage_ids) > 1:
-                    logs.update({f"stage{si}/{k}": v for k, v in stage_logs.items()})
-                else:
-                    logs.update(stage_logs)
-        if grid is not None:
-            # this rank's parts of the global means: one all-reduce sums
-            # them, the total with them
-            keys = list(logs)
-            summed = sum_over_spatial(torch.stack([logs[k].float() for k in keys] + [loss]))
-            logs = dict(zip(keys, summed[:-1].unbind(0)))
-            loss = summed[-1]
+        with span("unflow.train.forward"):
+            if t.supervised:
+                stages = model(n1, n2)
+            else:
+                # One apply at 2x batch gives forward AND backward flow: rows
+                # 2i and 2i+1 are the (fw, bw) pair of example i, and the
+                # second argument is the first with each pair swapped, so the
+                # tower runs once.
+                stages = model(interleave(n1, n2), interleave(n2, n1), pair_flipped_im2=True)
+        with span("unflow.train.loss"):
+            if t.supervised:
+                loss, logs = supervised_loss(stages[-1], gt, mask)
+            else:
+                stage_ids = range(len(stages)) if t.train_all else [len(stages) - 1]
+                loss = torch.zeros((), dtype=torch.float32, device=device)
+                for si in stage_ids:
+                    stage_total, stage_logs = unsupervised_loss(
+                        im1, im2, [f[0::2] for f in stages[si]], [f[1::2] for f in stages[si]],
+                        weights=weights, mask_occlusion=t.mask_occlusion,
+                        border_ratio=t.border_ratio,
+                    )
+                    loss = loss + stage_total
+                    if len(stage_ids) > 1:
+                        logs.update({f"stage{si}/{k}": v for k, v in stage_logs.items()})
+                    else:
+                        logs.update(stage_logs)
+            if grid is not None:
+                # this rank's parts of the global means: one all-reduce sums
+                # them, the total with them
+                keys = list(logs)
+                summed = sum_over_spatial(torch.stack([logs[k].float() for k in keys] + [loss]))
+                logs = dict(zip(keys, summed[:-1].unbind(0)))
+                loss = summed[-1]
 
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = [p.grad for group in optimizer.param_groups for p in group["params"]
-                 if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads])
-        )
-        if t.grad_clip_norm > 0:
-            # optax.clip_by_global_norm: g * max_norm / max(norm, max_norm)
-            scale = t.grad_clip_norm / grad_norm.clamp(min=t.grad_clip_norm)
-            for g in grads:
-                g.mul_(scale)
-        lr = schedule(state.step)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
+        with span("unflow.train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("unflow.train.adam"):
+            grads = [p.grad for group in optimizer.param_groups for p in group["params"]
+                     if p.grad is not None]
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads])
+            )
+            if t.grad_clip_norm > 0:
+                # optax.clip_by_global_norm: g * max_norm / max(norm, max_norm)
+                scale = t.grad_clip_norm / grad_norm.clamp(min=t.grad_clip_norm)
+                for g in grads:
+                    g.mul_(scale)
+            lr = schedule(state.step)
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+            optimizer.step()
         state.step += 1
 
         logs = {k: v.detach() for k, v in logs.items()}
@@ -442,15 +456,22 @@ class Trainer:
         """Copy the frames of one host batch (and the ground truth of a
         supervised one) to the device."""
         keys = ("im1", "im2", "flow", "mask") if self.cfg.train.supervised else ("im1", "im2")
-        return {
-            key: torch.from_numpy(np.ascontiguousarray(batch[key])).to(self.device, non_blocking=True)
-            for key in keys if key in batch
-        }
+        with span("unflow.train.put_batch"):
+            return {
+                key: torch.from_numpy(np.ascontiguousarray(batch[key])).to(self.device,
+                                                                           non_blocking=True)
+                for key in keys if key in batch
+            }
 
     def train_step(self, batch: dict) -> dict:
         """Copy one host batch to the device and take one step on it; returns
-        the step's logs as 0-d tensors, without waiting for the device."""
-        return self._step_fn(self.state, self.put_batch(batch))
+        the step's logs as 0-d tensors, without waiting for the device. Under
+        a ``torch.profiler`` profile the step is the span
+        ``unflow.train.step`` (unit: the step count), with the phases
+        ``put_batch``, ``augment``, ``forward``, ``loss``, ``backward`` and
+        ``adam`` as its children."""
+        with span("unflow.train.step", self.state.step):
+            return self._step_fn(self.state, self.put_batch(batch))
 
     def _sync(self) -> None:
         """Wait for the queued steps before a pause of the throughput
