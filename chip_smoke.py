@@ -219,8 +219,9 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 sites sum to its 5,521,148,095,680), and the MFU of phase 4's
                 step against ``peak_flops()`` (none for an unknown card).
  20. profile hooks -- ``utils.profiling.trace`` around two bf16 train steps: the
-                trace reads back and names the three tensor-core kernels and
-                ``unflow.train.loss``; the spans' host ms a step beside phase
+                trace reads back and names the three tensor-core kernels (run
+                inside the step's replayed CUDA graph) and
+                ``unflow.train.replay``; the spans' host ms a step beside phase
                 4's pairs/s.
  21. native decode -- ``UNFLOW_NATIVE=1``: the C++ sidecar builds into
                 ``_build/``; the KITTI trees' frames and 16-bit flows and a
@@ -1982,6 +1983,8 @@ def allreduce_in_trace(path: Path) -> str:
     start = min(e["ts"] for e in events)
     end = max(e["ts"] + e["dur"] for e in events)
     bwd = [e for e in events if e["name"].startswith("autograd::engine::evaluate_function")]
+    if not bwd:  # one rank replays the step as a CUDA graph: no autograd on the host
+        return f"step span {(end - start) / 1e3:.3f} ms, no backward pass on the host"
     b0, b1 = min(e["ts"] for e in bwd), max(e["ts"] + e["dur"] for e in bwd)
     names: dict[str, list[float]] = {}
     for e in events:
@@ -2363,8 +2366,8 @@ def run_profile_hooks(tmp: Path, ready_pairs_per_s: float) -> None:
     per_step = {k: f"{v['self_ns'] / 2e6:.3f}" for k, v in spans.items()}
     print(f"profile hooks: host ms a step by span (self, under the profiler) {per_step}; the "
           f"Trainer's pairs_per_sec (phase 4, unprofiled) {ready_pairs_per_s:.3f}", flush=True)
-    if "unflow.train.loss" not in {e.get("name") for e in events}:
-        raise AssertionError("the trace names no unflow.train.loss span")
+    if "unflow.train.replay" not in {e.get("name") for e in events}:
+        raise AssertionError("the trace names no unflow.train.replay span")
     names = ("corr_fwd_mma_kernel", "corr_bwd_f1_mma_kernel", "corr_bwd_f2_mma_kernel")
     if not all(any(n in k for k in mine) for n in names):
         raise AssertionError(f"the trace names no tensor-core correlation kernel: {mine}")

@@ -66,11 +66,22 @@ class CheckpointManager:
         """Load the latest checkpoint into ``model`` and ``optimizer`` (built
         as when it was saved: the same parameters, in the same order, requiring
         a gradient) and return its step. ``load_state_dict`` copies the
-        weights and Adam's moments to the parameters' device and leaves Adam's
-        step counts on the host."""
+        weights and Adam's moments to the parameters' device. How the
+        optimizer holds its learning rate and step counts stays its own,
+        whichever device saved the checkpoint: a capturable Adam (on a GPU,
+        ``build_optimizer``) keeps its device tensor of the learning rate and
+        its step counts on the device, any other its counts on the host."""
         ckpt = self.load()
         model.load_state_dict(ckpt["model"])
+        own = [{k: g[k] for k in ("lr", "capturable") if k in g} for g in optimizer.param_groups]
         optimizer.load_state_dict(ckpt["optimizer"])
+        for group, kept in zip(optimizer.param_groups, own):
+            group.update(kept)
+            for p in group["params"]:
+                state = optimizer.state.get(p, {})
+                if "step" in state:
+                    device = p.device if group.get("capturable") else "cpu"
+                    state["step"] = state["step"].to(device)
         return ckpt["step"]
 
 

@@ -7,9 +7,11 @@ apply of the stack (C, cS, csS, CSS ...) on the interleaved forward/backward
 2x batch and the 5-scale unsupervised loss of the last stage (of every stage
 with ``train_all``); for ``supervised`` training one forward apply and the
 multi-scale EPE against the ground truth; backward and Adam with a
-piecewise-halved learning rate. PyTorch runs eagerly, so the step is a plain
-function that updates the model and the optimizer of its :class:`TrainState`
-in place; there is no jit and no mesh. The :class:`Trainer` initializes the
+piecewise-halved learning rate. The step is a plain function that updates
+the model and the optimizer of its :class:`TrainState` in place; there is no
+jit and no mesh. On one GPU everything after the augmentation is captured
+once as a CUDA graph and replayed (``train/graph.py``), elsewhere dispatched
+eagerly. The :class:`Trainer` initializes the
 stages of a fresh experiment from the ``finetune`` experiments, resumes an
 experiment from its latest checkpoint, saves every ``save_interval``
 steps (``train/checkpoint.py``), given an ``eval_fn`` evaluates every
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from pathlib import Path
 from typing import Callable, Iterable
 
@@ -73,10 +76,11 @@ from unflow_tpu_torch.parallel import (
 )
 from unflow_tpu_torch.parallel.spatial import slab, sum_over_spatial
 from unflow_tpu_torch.train.checkpoint import CheckpointManager, init_stages_from
+from unflow_tpu_torch.train.graph import StepGraph
 from unflow_tpu_torch.train.schedule import piecewise_halving
 from unflow_tpu_torch.train.summaries import ImageSummaryWriter
 from unflow_tpu_torch.utils import MetricsLogger
-from unflow_tpu_torch.utils.profiling import span
+from unflow_tpu_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass
@@ -96,13 +100,44 @@ def build_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.Adam:
     over the parameters that require a gradient; frozen ones get no state.
     ``weight_decay`` is the coupled L2 term, added to the gradient before
     Adam (``optax.add_decayed_weights``). The learning rate of each update is
-    set by the train step from the schedule."""
+    set by the train step from the schedule.
+
+    On a GPU Adam is capturable: its step counts live on the device and its
+    learning rate is a 0-d device tensor that the train step writes, so that
+    a CUDA graph of the update (``train/graph.py``) replays with each step's
+    rate."""
     t = cfg.train
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
         raise ValueError(f"flownet spec {t.flownet!r} leaves no parameter to train")
-    return torch.optim.Adam(
-        params, lr=t.learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=t.weight_decay
+    hyper = {"betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": t.weight_decay}
+    device = params[0].device
+    if device.type == "cuda":
+        lr = torch.tensor(t.learning_rate, dtype=torch.float32, device=device)
+        return torch.optim.Adam(params, lr=lr, capturable=True, **hyper)
+    return torch.optim.Adam(params, lr=t.learning_rate, **hyper)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Write ``lr`` into every parameter group: into its device tensor where
+    Adam holds one (a graph of the update reads it there), else as a
+    float."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def replays_as_graph(device: torch.device, processes: int, spatial_shards: int) -> bool:
+    """Whether the train step's update is captured once as a CUDA graph and
+    replayed (``train/graph.py``), else dispatched eagerly each step."""
+    return (
+        device.type == "cuda"
+        # DDP's gradient all-reduce runs from hooks inside the backward pass
+        and processes == 1
+        # W-sharding's halo exchanges and sums are gloo collectives on the host
+        and spatial_shards == 1
     )
 
 
@@ -188,6 +223,16 @@ def make_train_step(
     With ``spatial_shards > 1`` (several processes), the augmented frames are
     cut to this rank's W-slab and the rest of the step runs in its
     ``SpatialContext``.
+
+    The augmentation runs eagerly. The rest of the step (the network, the
+    loss, the backward pass, the clip and Adam) runs as a CUDA graph where
+    :func:`replays_as_graph` admits it (one process on a GPU): the first step
+    eagerly, the second captured and replayed, every later one replayed
+    (``train/graph.py``; one graph per optimizer). Elsewhere, and for a step
+    whose frames differ in shape or dtype from the captured ones, it is
+    dispatched eagerly. ``train_step.eager(state, batch)`` takes a step
+    eagerly on any device. Each step counts ``train.steps``, each replayed one
+    ``train.graph_replays`` (``utils/profiling.py::count``).
     """
     _check_parallel(cfg)
     t = cfg.train
@@ -263,8 +308,11 @@ def make_train_step(
         mask = None if mask is None else nchw(mask)
         return [n1, n2, nchw(im1), nchw(im2), gt, mask]
 
-    def train_step(state: TrainState, batch: dict) -> dict:
+    graphs = weakref.WeakKeyDictionary()  # optimizer -> its StepGraph
+
+    def take_step(state: TrainState, batch: dict, graph: bool) -> dict:
         device = batch["im1"].device
+        count("train.steps")
         with span("unflow.train.augment"):
             frames = augment(state, batch, device)
             if grid is not None:
@@ -272,14 +320,29 @@ def make_train_step(
                 # each keeps its W-slab of them
                 ctx = SpatialContext.of(grid, t.width)
                 frames = [None if x is None else slab(x, ctx) for x in frames]
-        if grid is None:
-            return finish(state, *frames, device)
-        with ctx:
-            return finish(state, *frames, device)
+        lr = schedule(state.step)
+        set_lr(state.optimizer, lr)
+        if grid is not None:
+            with ctx:
+                logs = finish(state, *frames, device)
+        elif graph and replays_as_graph(device, process_shard()[1], t.spatial_shards):
+            runner = graphs.get(state.optimizer)
+            if runner is None:
+                runner = graphs[state.optimizer] = StepGraph(finish, device)
+            logs, replayed = runner(state, frames, device)
+            if replayed:
+                count("train.graph_replays")
+        else:
+            logs = finish(state, *frames, device)
+        state.step += 1
+        logs["lr"] = torch.tensor(lr, dtype=torch.float64)
+        return logs
 
     def finish(state, n1, n2, im1, im2, gt, mask, device) -> dict:
-        """The network, the loss, its backward and Adam on the augmented
-        ``(B, C, H, W)`` frames (a W-slab of them inside a context)."""
+        """The network, the loss, its backward and Adam (at the learning rate
+        last set) on the augmented ``(B, C, H, W)`` frames (a W-slab of them
+        inside a context); the logs as 0-d device tensors, ``loss`` and
+        ``grad_norm`` among them."""
         model, optimizer = state.model, state.optimizer
         logs: dict[str, torch.Tensor] = {}
         with span("unflow.train.forward"):
@@ -330,18 +393,17 @@ def make_train_step(
                 scale = t.grad_clip_norm / grad_norm.clamp(min=t.grad_clip_norm)
                 for g in grads:
                     g.mul_(scale)
-            lr = schedule(state.step)
-            for group in optimizer.param_groups:
-                group["lr"] = lr
             optimizer.step()
-        state.step += 1
 
         logs = {k: v.detach() for k, v in logs.items()}
         logs["loss"] = loss.detach()
         logs["grad_norm"] = grad_norm
-        logs["lr"] = torch.tensor(lr, dtype=torch.float64)
         return logs
 
+    def train_step(state: TrainState, batch: dict) -> dict:
+        return take_step(state, batch, graph=True)
+
+    train_step.eager = lambda state, batch: take_step(state, batch, graph=False)
     return train_step
 
 
@@ -469,7 +531,8 @@ class Trainer:
         a ``torch.profiler`` profile the step is the span
         ``unflow.train.step`` (unit: the step count), with the phases
         ``put_batch``, ``augment``, ``forward``, ``loss``, ``backward`` and
-        ``adam`` as its children."""
+        ``adam`` as its children; a replayed step has ``replay`` in place of
+        the last four."""
         with span("unflow.train.step", self.state.step):
             return self._step_fn(self.state, self.put_batch(batch))
 
