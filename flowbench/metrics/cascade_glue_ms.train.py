@@ -1,0 +1,15 @@
+"""Device ms a training step in the program's device span ``unflow.dev.glue``:
+the glue before each later stage (the previous flow upsampled, the second
+frame warped by it, the brightness error, the concatenation), summed. The
+program's counter ``device_us.unflow.dev.glue`` (CUDA timing events around
+the region, recorded by every step and by every replay of its CUDA graph)
+over ``device_steps``, the steps it was read in, over the run."""
+
+from flowbench.program import counters
+
+
+def read(run):
+    found = counters(run, "train", "device_us.unflow.dev.glue", "device_steps")
+    if not found or not found[1]:
+        return None
+    return found[0] / found[1] / 1000.0

@@ -51,6 +51,7 @@ from unflow_tpu_torch.ops.correlation import displacement_count
 from unflow_tpu_torch.ops.downsample import resize_bilinear
 from unflow_tpu_torch.ops.warp import backward_warp
 from unflow_tpu_torch.parallel import spatial
+from unflow_tpu_torch.utils.profiling import device_span
 
 FLOW_SCALE = 5.0
 
@@ -263,7 +264,13 @@ class FlowNetStack(nn.Module):
     def forward(
         self, im1: torch.Tensor, im2: torch.Tensor, pair_flipped_im2: bool = False
     ) -> list[list[torch.Tensor]]:
-        """``pair_flipped_im2`` reaches only a first-stage FlowNetC."""
+        """``pair_flipped_im2`` reaches only a first-stage FlowNetC.
+
+        Inside a train step on a GPU each stage's network is timed on the
+        device as ``unflow.dev.frozen`` (a lowercase stage) or
+        ``unflow.dev.trainable_fwd``, and the glue before a later stage (the
+        warp, the brightness error, the concatenation) as ``unflow.dev.glue``
+        (``utils/profiling.py::device_span``)."""
         h, w = im1.shape[-2:]
         dt = self.compute_dtype
         stage_flows: list[list[torch.Tensor]] = []
@@ -274,18 +281,23 @@ class FlowNetStack(nn.Module):
                 net = functools.partial(_checkpointed, net)
             if i == 0:
                 if ch.upper() == "C":
-                    flows = net(im1, im2, pair_flipped_im2)
+                    x = (im1, im2, pair_flipped_im2)
                 else:
-                    flows = net(torch.cat([im1, im2], 1))
+                    x = (torch.cat([im1, im2], 1),)
             else:
-                # the glue runs in compute_dtype; flow_prev stays float32,
-                # because the warp's sample coordinates need it
-                warped = backward_warp(im2.to(dt), flow_prev)
-                # eps inside the root: the gradient of a plain norm is NaN at
-                # a zero difference, which bfloat16 makes common
-                err = torch.sqrt(torch.sum(torch.square(im1.to(dt) - warped), 1, keepdim=True)
-                                 + 1e-6)
-                flows = net(torch.cat([im1.to(dt), im2.to(dt), warped, flow_prev.to(dt), err], 1))
+                with device_span("unflow.dev.glue", im1):
+                    # the glue runs in compute_dtype; flow_prev stays float32,
+                    # because the warp's sample coordinates need it
+                    warped = backward_warp(im2.to(dt), flow_prev)
+                    # eps inside the root: the gradient of a plain norm is NaN
+                    # at a zero difference, which bfloat16 makes common
+                    err = torch.sqrt(torch.sum(torch.square(im1.to(dt) - warped), 1, keepdim=True)
+                                     + 1e-6)
+                    x = (torch.cat([im1.to(dt), im2.to(dt), warped, flow_prev.to(dt), err], 1),)
+            with device_span("unflow.dev.frozen" if ch.islower() else "unflow.dev.trainable_fwd",
+                             im1):
+                flows = net(*x)
+            del x  # the glue's 12 channels: autograd keeps them where the backward needs them
             if ch.islower():
                 flows = [f.detach() for f in flows]
             stage_flows.append(flows)

@@ -24,7 +24,13 @@ from typing import Callable
 import torch
 
 from unflow_tpu_torch.ops.cuda.correlation import launch_counts
-from unflow_tpu_torch.utils.profiling import count, span
+from unflow_tpu_torch.utils.profiling import (
+    count,
+    device_step,
+    queue_device_step,
+    read_device_steps,
+    span,
+)
 
 
 def _signature(frames) -> tuple:
@@ -51,6 +57,13 @@ class StepGraph:
     count on the host at launch, which a replay skips: the launches counted
     while the graph was captured are taken back, and each replay adds them,
     so that the counters read a step's launches on either path.
+
+    The device spans of a step (``utils/profiling.py::device_span``) are
+    queued by each eager step but the warm-up; the capture keeps the ones it
+    recorded, which every replay records again, and queues them after each
+    replay. Before the next replay overwrites them, the previous replay's
+    times are read if the device has passed them (``read_device_steps``),
+    else dropped.
     """
 
     def __init__(self, finish: Callable[..., dict], device: torch.device):
@@ -62,6 +75,7 @@ class StepGraph:
         self._keys: list[str] = []
         self._out = None  # the logs stacked, written by every replay
         self._launches: dict[str, int] = {}
+        self._spans: list = []  # the device spans the capture recorded
 
     def __call__(self, state, frames: list, device: torch.device) -> tuple[dict, bool]:
         """The step's logs, and whether it was replayed."""
@@ -70,7 +84,8 @@ class StepGraph:
             self._signature = signature
             return self._warm_up(state, frames, device), False
         if signature != self._signature:
-            return self._finish(state, *frames, device), False
+            with device_step():
+                return self._finish(state, *frames, device), False
         if self._graph is None:
             self._capture(state, frames, device)
         return self._replay(frames), True
@@ -78,6 +93,8 @@ class StepGraph:
     def _warm_up(self, state, frames, device) -> dict:
         current = torch.cuda.current_stream(device)
         self._stream.wait_stream(current)
+        # no device spans: this step's times hold the first calls' loading of
+        # kernels and cuDNN's plans, which no later step pays
         with torch.cuda.stream(self._stream):
             logs = self._finish(state, *frames, device)
         current.wait_stream(self._stream)
@@ -90,11 +107,12 @@ class StepGraph:
         state.optimizer.zero_grad(set_to_none=True)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream):
+        with torch.cuda.graph(graph, stream=self._stream), device_step(queue=False) as spans:
             logs = self._finish(state, *self._inputs, device)
             self._keys = list(logs)
             self._out = torch.stack([logs[k].float() for k in self._keys])
         self._graph = graph
+        self._spans = spans
         self._launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
         for name, n in self._launches.items():  # a capture launches nothing: its replay counts
             count(name, -n)
@@ -104,7 +122,9 @@ class StepGraph:
             for buffer, x in zip(self._inputs, frames):
                 if buffer is not None:
                     buffer.copy_(x)
+            read_device_steps(drop=self._spans)
             self._graph.replay()
+            queue_device_step(self._spans)
             for name, n in self._launches.items():
                 count(name, n)
             return dict(zip(self._keys, self._out.clone().unbind(0)))

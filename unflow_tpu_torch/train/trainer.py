@@ -80,7 +80,7 @@ from unflow_tpu_torch.train.graph import StepGraph
 from unflow_tpu_torch.train.schedule import piecewise_halving
 from unflow_tpu_torch.train.summaries import ImageSummaryWriter
 from unflow_tpu_torch.utils import MetricsLogger
-from unflow_tpu_torch.utils.profiling import count, span
+from unflow_tpu_torch.utils.profiling import count, device_step, read_device_steps, span
 
 
 @dataclasses.dataclass
@@ -232,7 +232,11 @@ def make_train_step(
     whose frames differ in shape or dtype from the captured ones, it is
     dispatched eagerly. ``train_step.eager(state, batch)`` takes a step
     eagerly on any device. Each step counts ``train.steps``, each replayed one
-    ``train.graph_replays`` (``utils/profiling.py::count``).
+    ``train.graph_replays`` (``utils/profiling.py::count``). On a GPU the
+    network's stages and the glue between them are timed on the device
+    (``device_span``) in every step but the graph's warm-up, replayed or not,
+    and read into the counters ``device_us.*`` once the device has passed
+    them.
     """
     _check_parallel(cfg)
     t = cfg.train
@@ -323,7 +327,7 @@ def make_train_step(
         lr = schedule(state.step)
         set_lr(state.optimizer, lr)
         if grid is not None:
-            with ctx:
+            with ctx, device_step():
                 logs = finish(state, *frames, device)
         elif graph and replays_as_graph(device, process_shard()[1], t.spatial_shards):
             runner = graphs.get(state.optimizer)
@@ -333,9 +337,11 @@ def make_train_step(
             if replayed:
                 count("train.graph_replays")
         else:
-            logs = finish(state, *frames, device)
+            with device_step():
+                logs = finish(state, *frames, device)
         state.step += 1
         logs["lr"] = torch.tensor(lr, dtype=torch.float64)
+        read_device_steps()  # the earlier steps', while the device works on this one
         return logs
 
     def finish(state, n1, n2, im1, im2, gt, mask, device) -> dict:

@@ -20,6 +20,16 @@ less the time its children on the same thread cover).
 :func:`count` adds to a registry of integer counters that is always on: the
 correlation kernels' launches (``ops/cuda/correlation.py``), the Loader's
 gets and the requests and copied bytes of ``Evaluator.predict_batch``.
+
+:func:`device_span` times a region of a train step on the card: a pair of
+CUDA timing events recorded on the current stream before and after it. The
+events are ``external``, so that inside a CUDA graph's capture each becomes
+a node of the graph and every replay records it again. A step's spans are
+collected by :func:`device_step` and queued; :func:`read_device_steps`
+reads each queued step once the device has passed its last event (a query,
+never a wait) into the counters ``device_us.<name>`` (integer microseconds,
+summed) and ``device_steps`` (the steps read). Outside a :func:`device_step`
+and on the CPU a device span is a shared no-op context.
 """
 
 from __future__ import annotations
@@ -40,6 +50,8 @@ _RECORDS: list[tuple] = []  # (name, thread, start_ns, end_ns, parent, unit)
 _TOTALS: dict[str, list[int]] = {}  # name -> [count, total ns, self ns]
 _LOCK = threading.Lock()
 _LOCAL = threading.local()
+_DEVICE_OPEN: list | None = None  # the device spans of the step being recorded
+_DEVICE_QUEUE: list[list] = []  # recorded steps not yet read, oldest first
 
 
 @contextlib.contextmanager
@@ -140,7 +152,10 @@ def records() -> list[tuple]:
 def summary() -> dict:
     """``{"spans": {name: {"count", "total_ns", "self_ns"}}, "counters":
     {name: value}}``: every span recorded since :func:`reset`, the buffer's
-    cap notwithstanding, and the counters."""
+    cap notwithstanding, and the counters, with every queued device step the
+    device has passed read into them (read it after a synchronize to have
+    them all)."""
+    read_device_steps()
     with _LOCK:
         spans = {name: {"count": c, "total_ns": t, "self_ns": s}
                  for name, (c, t, s) in _TOTALS.items()}
@@ -171,3 +186,70 @@ def reset_counts(names) -> None:
     with _LOCK:
         for name in names:
             _COUNTS.pop(name, None)
+
+
+class _DeviceSpan:
+    __slots__ = ("name", "start", "end", "step")
+
+    def __init__(self, name: str, step: list):
+        self.name = name
+        self.step = step
+        self.start = torch.cuda.Event(enable_timing=True, external=True)
+        self.end = torch.cuda.Event(enable_timing=True, external=True)
+
+    def __enter__(self):
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        self.end.record()
+        # in the order the spans end, so that a step's last one ends last
+        self.step.append(self)
+        return False
+
+
+def device_span(name: str, like: torch.Tensor):
+    """Context that times its body on the device of ``like`` into the step
+    that :func:`device_step` records; a no-op outside one or on the CPU."""
+    if _DEVICE_OPEN is None or not like.is_cuda:
+        return _OFF
+    return _DeviceSpan(name, _DEVICE_OPEN)
+
+
+@contextlib.contextmanager
+def device_step(queue: bool = True):
+    """Collect the device spans of the enclosed step; yields their list
+    (filled as each span ends). With ``queue`` the step is queued for
+    :func:`read_device_steps` when the block ends; a CUDA graph's capture
+    keeps the list instead and queues it after each replay."""
+    global _DEVICE_OPEN
+    outer, spans = _DEVICE_OPEN, []
+    _DEVICE_OPEN = spans
+    try:
+        yield spans
+    finally:
+        _DEVICE_OPEN = outer
+    if queue:
+        queue_device_step(spans)
+
+
+def queue_device_step(spans: list) -> None:
+    """Queue a step's device spans, recorded or replayed, for reading."""
+    if spans:
+        _DEVICE_QUEUE.append(spans)
+
+
+def read_device_steps(drop: list | None = None) -> None:
+    """Add the times of every queued step whose last event the device has
+    passed to the counters, oldest first, without waiting for the device;
+    then forget ``drop`` if it is still queued (a graph about to record its
+    events again)."""
+    while _DEVICE_QUEUE and _DEVICE_QUEUE[0][-1].end.query():
+        spans = _DEVICE_QUEUE.pop(0)
+        times = [(f"device_us.{s.name}", round(1000 * s.start.elapsed_time(s.end))) for s in spans]
+        with _LOCK:
+            for name, us in times:
+                _COUNTS[name] = _COUNTS.get(name, 0) + us
+            _COUNTS["device_steps"] = _COUNTS.get("device_steps", 0) + 1
+    if drop is not None:
+        _DEVICE_QUEUE[:] = [s for s in _DEVICE_QUEUE if s is not drop]
