@@ -668,7 +668,7 @@ def run_eval(dtype: str, kernel: str, tolerance: float,
 
     print(f"main path predict_batch {cfg.train.flownet} {dtype} batch 4: launches {launches} of "
           f"{kernel} "
-          f"pairs/s {pairs_per_s:.3f} (host clock, {runs} batches, incl. host padding "
+          f"pairs/s {pairs_per_s:.3f} (host clock, {runs} batches, incl. padding "
           f"and copies)", flush=True)
     profile_call(lambda: ev.predict_batch(ims1, ims2), "batch", len(ims1) / pairs_per_s)
 

@@ -32,7 +32,7 @@ torch.set_num_threads(1)
 
 H, W, BATCH = 64, 128, 2
 TRAIN_PHASES = ("put_batch", "augment", "forward", "loss", "backward", "adam")
-INFER_PHASES = ("pad", "h2d", "forward", "d2h")
+INFER_PHASES = ("h2d", "pad", "forward", "d2h")
 
 
 @pytest.fixture(autouse=True)
@@ -153,9 +153,10 @@ def test_predict_is_one_request_over_its_four_phases_and_counts_its_bytes(tmp_pa
         "infer.requests"]
     grew = {k: v - before.get(k, 0) for k, v in profiling.counts().items()
             if k.startswith("infer.")}
-    padded = -(-hw[0] // 64) * 64 * (-(-hw[1] // 64) * 64)
-    assert grew == {"infer.requests": 1, "infer.h2d_bytes": 2 * padded * 3 * 4,
-                    "infer.d2h_bytes": padded * 2 * 4}
+    # the unpadded frames go in and the cropped flow comes back
+    pixels = hw[0] * hw[1]
+    assert grew == {"infer.requests": 1, "infer.padded_requests": int(hw != (64, 128)),
+                    "infer.h2d_bytes": 2 * pixels * 3 * 4, "infer.d2h_bytes": pixels * 2 * 4}
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "decode"])

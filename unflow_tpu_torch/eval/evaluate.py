@@ -1,9 +1,10 @@
 """Inference over frame pairs, and evaluation over a dataset.
 
 Port of ``unflow_tpu/eval/evaluate.py::Evaluator``: ``predict`` and
-``predict_batch`` pad raw [0, 1] frames with zeros to a multiple of 64,
-normalize them with the dataset's constants, run the network and upsample
-its finest flow to full resolution; ``run`` evaluates a list of examples in
+``predict_batch`` send raw [0, 1] frames to the device, pad them there with
+zeros to a multiple of 64, normalize them with the dataset's constants, run
+the network, upsample its finest flow to the padded size and crop it back
+before the copy to the host; ``run`` evaluates a list of examples in
 same-shape batches, averages AEE and Fl (``eval/metrics.py``) over the
 examples with ground truth, with the occluded / non-occluded breakdown where
 the examples carry one, and can dump the flows as ``.flo``, KITTI 16-bit
@@ -17,6 +18,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from unflow_tpu_torch.augment import normalize
 from unflow_tpu_torch.config import Config
@@ -66,6 +68,9 @@ class Evaluator:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.normalization = normalization
+        mean, self.stddev = normalization
+        # on the device once, so that a request copies no constant in
+        self.mean = torch.tensor(mean, dtype=torch.float32, device=self.device)
         self.model = build_model(cfg, self.device)
         self.model.load_state_dict(params)
         self.model.to(DTYPES[cfg.train.compute_dtype]).eval()
@@ -77,32 +82,57 @@ class Evaluator:
     def predict_batch(self, ims1: np.ndarray, ims2: np.ndarray) -> np.ndarray:
         """Same-shape pairs (B, H, W, 3) -> (B, H, W, 2); pads to /64.
 
+        The frames are copied into one device buffer as they are (a
+        contiguous float32 frame without a host copy; any other dtype is
+        cast to float32 on the host first); frames of two shapes raise
+        ``ValueError``. The device pads them with zeros to a multiple of 64
+        where H or W is not one, normalizes them, runs the network,
+        upsamples the flow at the padded size and crops it to (H, W); only
+        the crop is copied back.
+
         Under a ``torch.profiler`` profile the call is the span
         ``unflow.infer.request`` (unit: the request's number) with the
-        children ``unflow.infer.pad`` (the padding and the float32 cast on
-        the host), ``unflow.infer.h2d`` (both frames' copies in),
-        ``unflow.infer.forward`` (the network's dispatch) and
-        ``unflow.infer.d2h`` (``flow.cpu()``: the wait for the device's
-        queued work and the copy back). The counters ``infer.requests``,
-        ``infer.h2d_bytes`` and ``infer.d2h_bytes`` are always on."""
+        children ``unflow.infer.h2d`` (both frames' copies in),
+        ``unflow.infer.pad`` (the dispatch of the padding and the
+        normalization), ``unflow.infer.forward`` (the network's dispatch,
+        the upsampling and the crop) and ``unflow.infer.d2h``
+        (``flow.cpu()``: the wait for the device's queued work and the copy
+        back). The counters ``infer.requests``, ``infer.padded_requests``
+        (requests whose frames were padded), ``infer.h2d_bytes`` and
+        ``infer.d2h_bytes`` are always on."""
+        if ims1.shape != ims2.shape:
+            raise ValueError(f"frames of shapes {ims1.shape} and {ims2.shape}; a pair shares one")
         b, h, w, _ = ims1.shape
         hp = -(-h // 64) * 64
         wp = -(-w // 64) * 64
-        pad = ((0, 0), (0, hp - h), (0, wp - w), (0, 0))
         with span("unflow.infer.request", count("infer.requests")), torch.inference_mode():
-            with span("unflow.infer.pad"):
-                a1 = np.pad(ims1, pad).astype(np.float32)
-                a2 = np.pad(ims2, pad).astype(np.float32)
             with span("unflow.infer.h2d"):
-                p1 = torch.from_numpy(a1).to(self.device)
-                p2 = torch.from_numpy(a2).to(self.device)
-            count("infer.h2d_bytes", a1.nbytes + a2.nbytes)
+                # both frames in one buffer, so that each step below runs once
+                frames = torch.empty((2, b, h, w, 3), device=self.device)
+                for dst, ims in zip(frames, (ims1, ims2)):
+                    dst.copy_(torch.from_numpy(np.ascontiguousarray(ims, dtype=np.float32)))
+            count("infer.h2d_bytes", frames.numel() * frames.element_size())
+            with span("unflow.infer.pad"):
+                n1, n2 = self._network_input(frames, hp, wp)
+            count("infer.padded_requests", int((hp, wp) != (h, w)))
             with span("unflow.infer.forward"):
-                flow = predict_flow(self.model, p1, p2, self.normalization)
+                stages = self.model(n1, n2)
+                flow = full_res_flow(stages[-1], hp, wp).permute(0, 2, 3, 1)[:, :h, :w]
             with span("unflow.infer.d2h"):
                 flow = flow.cpu()
             count("infer.d2h_bytes", flow.numel() * flow.element_size())
-            return flow.numpy()[:, :h, :w]
+            return flow.numpy()
+
+    def _network_input(self, frames: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+        """(2, B, H, W, 3) float32 frames in [0, 1] on the device -> the
+        network's two (B, 3, hp, wp) inputs: padded with zeros at the bottom
+        and the right, then normalized, padding included, by the float32
+        operations of ``augment.normalize`` in its order, so that the
+        result is the same to the bit."""
+        h, w = frames.shape[2:4]
+        if (h, w) != (hp, wp):
+            frames = F.pad(frames, (0, 0, 0, wp - w, 0, hp - h))
+        return ((frames * 255.0 - self.mean) / self.stddev).permute(0, 1, 4, 2, 3)
 
     def run(
         self,

@@ -19,7 +19,8 @@ less the time its children on the same thread cover).
 
 :func:`count` adds to a registry of integer counters that is always on: the
 correlation kernels' launches (``ops/cuda/correlation.py``), the Loader's
-gets and the requests and copied bytes of ``Evaluator.predict_batch``.
+gets and the requests, the requests whose frames were padded and the copied
+bytes of ``Evaluator.predict_batch``.
 
 :func:`device_span` times a region of a train step on the card: a pair of
 CUDA timing events recorded on the current stream before and after it. The
