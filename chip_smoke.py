@@ -3,7 +3,13 @@
 
     python3 chip_smoke.py            # from the root of a checkout; needs one GPU
 
-Phases; any failure raises and the script exits non-zero without a result line:
+A correctness smoke: each phase runs a path of the port on the card and
+checks what it computes and which kernels it launches. It measures no path's
+speed; ``flowbench/run.py --workload <cell>`` does (``BENCHMARK.json``). The
+one timing kept is each correlation kernel's own, for PERF.md's kernel
+table; the seconds on a check's line say only where the script spends its
+time. Phases; any failure raises and the script exits non-zero without a
+result line:
 
   1. build   -- nvcc compiles every CUDA source of the port for sm_90a, one
                 process per source, all started together.
@@ -24,7 +30,8 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 geometry with stride 4,
                 which the dispatch sends to the FP32-core kernels' run-time
                 stride (in bfloat16 to the three ``*_simt`` twins; their reported
-                numbers are from this case). Times are medians of 20 launches,
+                numbers are from this case). Each launch must be the kernel the
+                dispatch names. Times are medians of 20 launches,
                 each timed with CUDA events after warm-up. A tensor-core kernel
                 that is slower than its twin at the training geometry fails the run.
                 Each f32 gradient's time at the training geometry is also printed
@@ -54,10 +61,9 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 whole gradient must agree (2e-2 in bf16, 1e-4 in f32 with TF32
                 off: the correlation's summation order differs), and the step
                 must launch its three kernels once; the f32 step is also run
-                twice through the plain correlation, as a control. Then ``Trainer.run`` on batches that are
-                ready on the host, for the step's own time, its peak memory and a
-                profile of one step; and one f32 step at batch 8 (TF32 off),
-                profiled after a warm-up, for the f32 gradients' share of it.
+                twice through the plain correlation, as a control. Then one f32
+                step at batch 8 (TF32 off) after two warm-up steps, which must
+                launch each of the three f32 kernels once.
   5. recipe  -- the stacked recipe through ``cli.train``, 2 steps each at 320x1152,
                 batch 8, bf16, ``dataset=synthetic``, a checkpoint at step 2:
                 configs/kitti_unsup_c.ini (FlowNetC, ``--ex kitti_c``), then
@@ -77,26 +83,21 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 snapshot supplies the net) must write a finite flow and launch
                 ``corr_fwd_bf16`` once; ``Evaluator(exp_dir=...)`` at batch 4 is
                 held against the same weights through the plain correlation
-                (relative L2 < 2e-2) and timed.
+                (relative L2 < 2e-2).
   8. the ``CSS`` twins -- every stage trainable, ``train_all`` (each stage's loss,
                 gradients through the warps into C): one step through the
                 kernels against the plain-correlation step, bf16 at batch 8
                 (2e-2) and f32 at batch 2 (1e-4, TF32 off) from three init seeds.
                 Each f32 gap is printed per stage and for its largest leaves,
-                beside the gap between two runs of the plain step itself; then
-                the plain step twice with cuDNN's default algorithms (printed).
+                beside the gap between two runs of the plain step itself.
   9. remat   -- per-stage rematerialization: ``cli.train --set remat=true`` for C,
                 csS (from the recipe's experiments) and CSS with ``train_all``,
                 2 steps each at 320x1152, batch 8, bf16 (a trainable C launches
                 ``corr_fwd_bf16`` twice a step, once more for its recompute; a
-                frozen c once); then for each of the three ``Trainer.run`` on
-                ready host batches with remat off and on side by side: step_ms,
-                pairs/s, peak memory and the kernels of a profiled step (the
-                timed csS and CSS runs; C's without remat is phase 4's). Then
-                one step with remat against the same step without it, both
-                through the kernels, cuDNN deterministic: bf16 C at batch 8
-                (equal) and f32 CSS ``train_all`` at batch 2 (1e-6, TF32 off),
-                each arm's launches asserted and its peak printed.
+                frozen c once). Then one step with remat against the same step
+                without it, both through the kernels, cuDNN deterministic: bf16
+                C at batch 8 (equal) and f32 CSS ``train_all`` at batch 2 (1e-6,
+                TF32 off), each arm's launches asserted.
  10. real-data training -- a KITTI raw tree (2 drives of 9 frames at 375x1242,
                 PNG, rendered from smooth textures) and a KITTI 2012 training
                 tree (8 pairs of ``data/synthetic.py::make_pair`` at 375x1242,
@@ -108,16 +109,13 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 step (the forward once more per evaluation, on KITTI 2012's
                 pairs), no ``*_simt``, the loss is finite and ``eval/aee`` is
                 logged. The same run through the decoding Loader (no
-                ``packed_dir``) follows; both pairs/s (steps 5-12, the
-                Trainer's windows of 4 steps, eval pauses left out) are printed
-                beside the ready-batch figure of phase 4.
+                ``packed_dir``) follows, with the same checks.
  11. real-data evaluation -- ``cli.eval --ex kitti_real --dataset kitti_2012
                 --batch 4`` prints AEE, Fl and the noc/occ breakdown and launches
                 ``corr_fwd_bf16`` once per batch; ``Evaluator.run`` on the same
                 weights through the kernel against the plain correlation (which
                 launches no kernel): the 8 predicted flows within 2e-2 relative
-                L2 in bf16, 1e-4 in f32 (TF32 off, through ``corr_fwd_f32``),
-                and its pairs/s.
+                L2 in bf16, 1e-4 in f32 (TF32 off, through ``corr_fwd_f32``).
  12. held-out, short -- ``python -m unflow_tpu_torch.heldout`` at 128x256, batch
                 8, a 64-pair corpus, 4 steps in 2 segments across
                 ``--bootstrap-until 2``: the zero-flow AEE is 15.3428, the curve
@@ -177,9 +175,9 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 (``Evaluator.run``: bf16 2e-2, f32 1e-4).
  16. summaries -- ``cli.train`` (configs/kitti_unsup_c.ini, synthetic) with
                 ``tensorboard`` and an image summary every 2 of 4 steps; the
-                event file is read back with ``read_events`` (the scalars of
-                steps 2 and 4, 7 images at each); then ``Trainer.run`` on ready
-                host batches with and without summaries: step_ms and wall time.
+                event file is read back with ``read_events``: the scalars of
+                steps 2 and 4, 7 images at each, and the summaries' forward
+                launches.
  17. distributed -- ``cli.train`` under ``torchrun`` (this script re-run as
                 ``--ddp-worker``, which joins the group and runs several
                 ``cli.train`` jobs in it, the launch counts set to 0 before
@@ -196,8 +194,7 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 against its plain twin; a 2-rank csS run resumed at step 2
                 identical to the uninterrupted one; one 2-rank bf16 step with
                 ``remat`` against the one-rank step without it (2e-2; the
-                forward twice a step a rank); step_ms and pairs/s of one and
-                two ranks.
+                forward twice a step a rank).
  18. spatial -- W-sharding: ``cli.train --set spatial_shards=2`` under ``torchrun`` on the
                 packed KITTI raw tree (configs/kitti_unsup_c.ini, 320x1152, global
                 batch 8, a W-slab of 576 columns a rank). Two spatial ranks (one per
@@ -211,18 +208,15 @@ Phases; any failure raises and the script exits non-zero without a result line:
                 against one rank; and one bf16 step with ``remat`` on 2 spatial
                 ranks (the recompute re-issues the halo exchanges in the
                 backward pass) against one rank without it. Limits 2e-2 in
-                bf16, 1e-4 in f32 on the
-                losses, the one-step gradient and the parameters; each rank's peak
-                memory beside one rank's, step_ms and the launches are printed.
+                bf16, 1e-4 in f32 on the losses, the one-step gradient and the
+                parameters; each rank's launches a step asserted.
  19. flops   -- ``utils/flops.py``'s count of the UnFlow-C bf16 step at 320x1152,
-                batch 8, site by site (as the JAX package counts and keys it; the
-                sites sum to its 5,521,148,095,680), and the MFU of phase 4's
-                step against ``peak_flops()`` (none for an unknown card).
+                batch 8, site by site (as the JAX package counts and keys it): the
+                sites must sum to its 5,521,148,095,680.
  20. profile hooks -- ``utils.profiling.trace`` around two bf16 train steps: the
                 trace reads back and names the three tensor-core kernels (run
                 inside the step's replayed CUDA graph) and
-                ``unflow.train.replay``; the spans' host ms a step beside phase
-                4's pairs/s.
+                ``unflow.train.replay``.
  21. native decode -- ``UNFLOW_NATIVE=1``: the C++ sidecar builds into
                 ``_build/``; the KITTI trees' frames and 16-bit flows and a
                 ``Loader`` epoch equal the PIL / numpy path's bit for bit.
@@ -302,24 +296,6 @@ KITTI_RAW_DRIVES = ("2011_09_26_drive_0001_sync", "2011_09_26_drive_0002_sync")
 RAW_FRAMES = 9
 KITTI_PAIRS = 8
 REAL_EVAL_INTERVAL = 6
-# profile rows by the words in a kernel's name; the first group that matches
-PROFILE_GROUPS = {
-    "correlation kernels (this repo)": (
-        "corr_fwd_kernel", "corr_bwd_f1_kernel", "corr_bwd_f2_kernel", "corr_fwd_mma_kernel",
-        "corr_bwd_f1_mma_kernel", "corr_bwd_f2_mma_kernel",
-    ),
-    "copies": ("Memcpy", "Memset"),
-    "cuDNN convolutions and their layout kernels": (
-        "cudnn", "xmma", "cutlass", "implicit_gemm", "dgrad", "wgrad", "convolve", "nhwc", "nchw",
-        "Nhwc", "Nchw",
-    ),
-    "optimizer": ("Adam", "multi_tensor_apply"),
-    "gathers and scatter-adds (warp, crop)": ("gather", "scatter", "index", "Index"),
-    "census patches (im2col, col2im)": ("im2col", "col2im"),
-    "random numbers": ("distribution", "philox", "Philox", "normal", "uniform"),
-    "reductions": ("reduce_kernel",),
-    "elementwise": ("elementwise",),
-}
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 0.02}
 # the JAX package's count of the UnFlow-C bf16 step at 320x1152, batch 8
 # (tests/test_torch_flops.py holds the port's equal to it)
@@ -599,41 +575,8 @@ def run_cli(tmp: Path) -> int:
     return launches
 
 
-def profile_call(fn, what: str, wall_s: float, top: int = 8) -> int:
-    """Device time by kernel over one call of ``fn`` (torch.profiler), and the
-    device's busy share of the unprofiled wall time ``wall_s`` of one call.
-    Returns the call's count of kernels and copies."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # kernels and copies, without the profiler's annotations (Optimizer.step#...),
-    # whose time their kernels already count
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not (getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."))]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    kernels = sum(e.count for e in rows)
-    print(f"  profile: device busy {busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms wall per {what} "
-          f"({busy_ms / (wall_s * 1e3):.3f}), {kernels} kernels and copies")
-    groups: dict[str, list[float]] = {}
-    for e in rows:
-        group = next((g for g, words in PROFILE_GROUPS.items() if any(w in e.key for w in words)),
-                     "other PyTorch kernels")
-        ms_count = groups.setdefault(group, [0.0, 0])
-        ms_count[0] += e.self_device_time_total / 1e3
-        ms_count[1] += e.count
-    for group, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  profile group: {ms:9.3f} ms  x{count:<5d} {group}")
-    for e in sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
-        print(f"  profile: {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    return kernels
-
-
 def run_eval(dtype: str, kernel: str, tolerance: float,
-             exp_dir: Path | None = None) -> tuple[int, float]:
+             exp_dir: Path | None = None) -> int:
     """``Evaluator.predict_batch`` at batch 4: FlowNetC of configs/kitti_unsup_c.ini
     with random weights, or the network and weights of the experiment
     ``exp_dir`` (its snapshot and latest checkpoint)."""
@@ -660,17 +603,8 @@ def run_eval(dtype: str, kernel: str, tolerance: float,
     reset_launch_counts()
     flow = ev.predict_batch(ims1, ims2)
     launches = launch_counts()[kernel]
-    runs = 5
-    t = time.perf_counter()
-    for _ in range(runs):
-        ev.predict_batch(ims1, ims2)
-    pairs_per_s = runs * len(ims1) / (time.perf_counter() - t)
-
     print(f"main path predict_batch {cfg.train.flownet} {dtype} batch 4: launches {launches} of "
-          f"{kernel} "
-          f"pairs/s {pairs_per_s:.3f} (host clock, {runs} batches, incl. padding "
-          f"and copies)", flush=True)
-    profile_call(lambda: ev.predict_batch(ims1, ims2), "batch", len(ims1) / pairs_per_s)
+          f"{kernel}", flush=True)
 
     ref_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, corr_impl="torch"))
     ref = Evaluator(ref_cfg, params=params, normalization=norm, device="cuda")
@@ -685,7 +619,7 @@ def run_eval(dtype: str, kernel: str, tolerance: float,
         raise AssertionError(f"bad flow from predict_batch {dtype}")
     if not err < tolerance:
         raise AssertionError(f"predict_batch {dtype} disagrees with the plain correlation")
-    return launches, pairs_per_s
+    return launches
 
 
 def train_config(tmp: Path, config: Path = CONFIG, dataset: str = "synthetic", **overrides):
@@ -743,9 +677,7 @@ def run_train_cli(tmp: Path, dtype: str, steps: int, batch: int,
         raise AssertionError(f"cli.train {dtype} did not launch each kernel once per step: {counts}")
     last = records[-1]
     print(f"train path cli.train {dtype}: step {last['step']} loss {last['loss']:.5g} "
-          f"grad_norm {last['grad_norm']:.5g} pairs/s {last['pairs_per_sec']:.3f} "
-          f"step_ms {last['step_ms']:.3f} (the Trainer's last window; the host renders "
-          f"the synthetic pairs meanwhile)", flush=True)
+          f"grad_norm {last['grad_norm']:.5g}", flush=True)
     if last["step"] != steps or not all(np.isfinite(r["loss"]) for r in records):
         raise AssertionError(f"cli.train {dtype}: bad metrics.jsonl {records}")
     return mine
@@ -783,7 +715,7 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
     for its largest leaves; with ``control`` the step held against runs
     twice, and the gap between those two (what is left of the card's
     run-to-run spread: the float atomics of the gathers' and the resizes'
-    gradients) is printed beside it. Each arm's peak memory is printed.
+    gradients) is printed beside it.
     ``supervised`` (``dense`` or ``sparse``) takes a supervised step on a
     batch with ground truth of that kind. Returns the launches of the step
     under test."""
@@ -804,7 +736,7 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
     test, ref = arms
     if control:
         arms[ref + "_again"] = arms[ref]
-    results, launched, peaks, want = {}, {}, {}, {}
+    results, launched, want = {}, {}, {}
     params = None
     for arm, arm_overrides in arms.items():
         cfg = train_config(tmp, config, compute_dtype=dtype, batch_size=batch,
@@ -816,16 +748,13 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
         trainer = Trainer(cfg, tmp / f"twin_{cfg.train.flownet}_{dtype}_s{corr_stride}_{arm}"
                           f"{supervised}{cfg.train.mask_occlusion}", [], device="cuda",
                           params=params)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         with deterministic_cudnn():
             logs = {k: float(v) for k, v in trainer.train_step(batches[0]).items()}
             torch.cuda.synchronize()
-        peaks[arm] = torch.cuda.max_memory_allocated() / 2**20
         launched[arm] = {k: v for k, v in launch_counts().items() if v}
-        # kept on the host between arms, so that no arm's peak holds an earlier
-        # arm's gradients; the gaps are summed on the card
+        # kept on the host between arms, so that the card holds one arm's
+        # gradients at a time; the gaps are summed on the card
         grads = {n: p.grad.flatten().cpu() for n, p in trainer.model.named_parameters()
                  if p.grad is not None}
         results[arm] = (logs["loss"], logs["grad_norm"], grads)
@@ -867,8 +796,7 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
           f"loss {loss_a:.6g} vs {loss_b:.6g}, grad_norm {norm_a:.6g} vs {norm_b:.6g}, "
           "relative differences " + " ".join(f"{k} {v:.3e}" for k, v in rel.items())
           + f" (tol {tolerance}); launches {launched[test]} ({label_a}), {launched[ref]} "
-          f"({label_b}); peak MiB {peaks[test]:.1f} ({label_a}), {peaks[ref]:.1f} ({label_b})",
-          flush=True)
+          f"({label_b})", flush=True)
     pairs = [(f"{label_a} vs {label_b}", per_stage, top)]
     if control:
         c_rel, c_stage, c_top = gaps(ref + "_again", ref)
@@ -888,95 +816,28 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
     return launched[test]
 
 
-def run_cudnn_spread(tmp: Path, seed: int = 7) -> None:
-    """The f32 ``CSS`` + ``train_all`` step at batch 2 through the plain
-    correlation, twice, with cuDNN free to pick its algorithms: the card's
-    run-to-run spread that the twins are held clear of. A measurement only."""
-    from unflow_tpu_torch.models import build_model, init_params
-    from unflow_tpu_torch.train import Trainer
-
-    cfg = train_config(tmp, CSS_CONFIG, compute_dtype="float32", batch_size=2, corr_impl="torch",
-                       flownet="CSS", train_all=True, finetune=())
-    model = build_model(cfg, "cpu")
-    init_params(model, torch.Generator().manual_seed(seed))
-    batch = host_batches(2, 1)[0]
-    grads = []
-    for run in range(2):
-        trainer = Trainer(cfg, tmp / f"spread_{run}", [], device="cuda", params=model.state_dict())
-        trainer.train_step(batch)
-        grads.append(torch.cat([p.grad.flatten() for p in trainer.model.parameters()]))
-    rel = (torch.linalg.vector_norm(grads[0] - grads[1]) / torch.linalg.vector_norm(grads[1])).item()
-    print(f"cuDNN's own spread, f32 CSS train_all init seed {seed} batch 2, plain step twice with "
-          f"cuDNN's default algorithms: gradient relative L2 {rel:.3e}", flush=True)
-
-
-def run_train_timed(tmp: Path, config: Path = CONFIG, warmup: int = 4, steps: int = 16,
-                    **overrides) -> dict:
-    """``Trainer.run`` at 320x1152, batch 8, bf16 on batches that are ready on
-    the host: the step's time from the Trainer's own window (the checkpoint
-    saves left out), the peak memory and a profile of one step. Returns
-    pairs/s, step_ms, the peak in MiB and the profiled step's kernels."""
-    from unflow_tpu_torch.train import Trainer
-
-    cfg = train_config(tmp, config, num_iters=warmup + steps, display_interval=warmup + steps,
-                       **overrides)
-    what = (f"{cfg.train.flownet}{' train_all' if cfg.train.train_all else ''}"
-            f"{' remat' if cfg.train.remat else ''}")
-    exp_dir = tmp / f"timed_{what.replace(' ', '_')}"
-    trainer = Trainer(cfg, exp_dir, itertools.cycle(host_batches(8, 2)), device="cuda")
-    trainer.run(max_iters=warmup)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    # the window of the one record starts at run(); the warm-up logged nothing
-    trainer.run()
-    record = json.loads((exp_dir / "metrics.jsonl").read_text().splitlines()[-1])
-    peak = torch.cuda.max_memory_allocated()
-    total = torch.cuda.get_device_properties(0).total_memory
-    print(f"train Trainer.run {what} bf16 320x1152 batch 8, host batches ready: pairs/s "
-          f"{record['pairs_per_sec']:.3f} step_ms {record['step_ms']:.3f} over {steps} steps "
-          f"(host clock, incl. host->device copies); loss {record['loss']:.5g}; peak memory "
-          f"{peak / 2**20:.1f} MiB ({peak / total:.3f} of the card's {total / 2**30:.1f} GiB)",
-          flush=True)
-    kernels = profile_call(lambda: trainer.train_step(next(trainer.batches)), "train step",
-                           record["step_ms"] / 1e3, top=14)
-    # After earlier profiler sessions in one process the tracer was seen to
-    # drop the large pageable copies, so the batch's copy is timed on its own.
-    batch = next(trainer.batches)
-    copy_ms = median_ms(lambda: trainer.put_batch(batch), runs=5, warmup=1)
-    mib = sum(batch[k].nbytes for k in ("im1", "im2")) / 2**20
-    print(f"  batch host->device copy ({mib:.1f} MiB, pageable): {copy_ms:.3f} ms by CUDA events "
-          f"(part of each step; it may be missing from the profile above)", flush=True)
-    shutil.rmtree(exp_dir)  # its checkpoints: a cascade's is over a GB
-    return {"pairs_per_s": record["pairs_per_sec"], "step_ms": record["step_ms"],
-            "peak_mib": peak / 2**20, "kernels": kernels}
-
-
-def run_train_profiled_f32(tmp: Path, warmup: int = 2) -> None:
-    """One f32 train step at 320x1152, batch 8 (TF32 off), profiled after a
-    warm-up: the share of the f32 gradients in the step they serve."""
+def run_f32_step(tmp: Path, warmup: int = 2) -> None:
+    """One f32 train step at 320x1152, batch 8 (TF32 off), after ``warmup``
+    steps: it must launch each of the three f32 kernels once."""
     from unflow_tpu_torch.ops.cuda.correlation import launch_counts, reset_launch_counts
     from unflow_tpu_torch.train import Trainer
 
     cfg = train_config(tmp, compute_dtype="float32", num_iters=warmup, display_interval=warmup)
-    trainer = Trainer(cfg, tmp / "profiled_f32", itertools.cycle(host_batches(8, 1)), device="cuda")
+    trainer = Trainer(cfg, tmp / "f32_batch8", itertools.cycle(host_batches(8, 1)), device="cuda")
     trainer.run(max_iters=warmup)
     torch.cuda.synchronize()
     reset_launch_counts()
-    t = time.perf_counter()
     trainer.train_step(next(trainer.batches))
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t
     mine = {k: v for k, v in launch_counts().items() if v}
-    print(f"train step f32 320x1152 batch 8: {wall_s * 1e3:.3f} ms (host clock, one step after "
-          f"{warmup} warm-up steps) launches {mine}", flush=True)
+    print(f"train step f32 320x1152 batch 8, after {warmup} warm-up steps: launches {mine}",
+          flush=True)
     if mine != {"corr_fwd_f32": 1, "corr_bwd_f1_f32": 1, "corr_bwd_f2_f32": 1}:
         raise AssertionError(f"the f32 train step did not launch the three f32 kernels: {mine}")
-    profile_call(lambda: trainer.train_step(next(trainer.batches)), "f32 train step", wall_s, top=14)
 
 
-# the stacks of the remat phase: config and overrides (csS through cli.train
-# is finetuned from the recipe's experiments; its timed runs start from the
-# init, as the earlier phases' timed runs do)
+# the stacks of the remat phase: config and overrides (csS is finetuned from
+# the recipe's experiments)
 REMAT_STACKS = {
     "C": (CONFIG, {}),
     "csS": (CSS_CONFIG, {}),
@@ -995,14 +856,11 @@ def remat_launches(stack: str, steps: int, remat: bool) -> dict[str, int]:
             "corr_bwd_f2_bf16": steps}
 
 
-def run_remat(tmp: Path, c_plain: dict) -> dict[str, dict[str, int]]:
+def run_remat(tmp: Path) -> dict[str, dict[str, int]]:
     """Per-stage rematerialization at 320x1152, batch 8, bf16: ``cli.train
     --set remat=true`` for C, csS and CSS with ``train_all``
-    (``RECIPE_STEPS`` steps each, their launches asserted), then each stack's
-    ``Trainer.run`` on ready host batches with remat off and on, side by
-    side: pairs/s, step_ms, the peak memory and the kernels of one profiled
-    step (C's run without remat is the training phase's, ``c_plain``).
-    Returns the ``cli.train`` runs' launch counts by path."""
+    (``RECIPE_STEPS`` steps each, their launches asserted). Returns their
+    launch counts by path."""
     paths = {}
     for stack, (config, overrides) in REMAT_STACKS.items():
         ex = "remat_" + stack.replace(" ", "_")
@@ -1018,15 +876,6 @@ def run_remat(tmp: Path, c_plain: dict) -> dict[str, dict[str, int]]:
             raise AssertionError(f"remat cli.train {stack}: launches {mine}, want {expected}")
         paths[f"cli.train {what} --set remat=true, {RECIPE_STEPS} steps"] = mine
         shutil.rmtree(tmp / "log" / "ex" / ex)
-    for stack, (config, overrides) in REMAT_STACKS.items():
-        off = c_plain if stack == "C" else run_train_timed(tmp, config,
-                                                            **{**overrides, "finetune": ()})
-        on = run_train_timed(tmp, config, remat=True, **{**overrides, "finetune": ()})
-        print(f"remat {stack} bf16 320x1152 batch 8, Trainer.run on ready host batches: step_ms "
-              f"{off['step_ms']:.3f} off, {on['step_ms']:.3f} on ({on['step_ms'] / off['step_ms']:.3f}"
-              f"x); pairs/s {off['pairs_per_s']:.3f} / {on['pairs_per_s']:.3f}; peak MiB "
-              f"{off['peak_mib']:.1f} / {on['peak_mib']:.1f} ({on['peak_mib'] / off['peak_mib']:.3f}"
-              f"x); kernels a step {off['kernels']} / {on['kernels']}", flush=True)
     return paths
 
 
@@ -1190,7 +1039,7 @@ def write_kitti_trees(data: Path) -> None:
                              valid * inside[..., None])
 
 
-def run_real_train(tmp: Path, ready_pairs_per_s: float) -> dict[str, int]:
+def run_real_train(tmp: Path) -> dict[str, int]:
     """``cli.pack`` of the KITTI raw tree at 320x1152, then ``cli.train`` on it
     (configs/kitti_unsup_c.ini, bf16, batch 8) through the packed Loader and
     through the decoding Loader, evaluating on KITTI 2012's pairs every
@@ -1206,7 +1055,7 @@ def run_real_train(tmp: Path, ready_pairs_per_s: float) -> dict[str, int]:
           flush=True)
     if rc != 0:
         raise AssertionError("cli.pack failed")
-    pairs_per_s, counts = {}, {}
+    counts = {}
     for ex, loader, extra in (("kitti_real", "packed", ["--set", f"packed_dir={tmp / 'packed'}"]),
                               ("kitti_real_decoded", "decoding", [])):
         cfg = train_config(tmp, dataset="kitti_raw", num_iters=TRAIN_STEPS, display_interval=4,
@@ -1223,26 +1072,17 @@ def run_real_train(tmp: Path, ready_pairs_per_s: float) -> dict[str, int]:
         expected = {"corr_fwd_bf16": TRAIN_STEPS + len(evals), "corr_bwd_f1_bf16": TRAIN_STEPS,
                     "corr_bwd_f2_bf16": TRAIN_STEPS}
         last = steps[-1]
-        # the Trainer's windows of 4 steps leave the eval pauses out; the
-        # first holds the warm-up, the others together are steps 5-12
-        windows = [r["pairs_per_sec"] for r in steps]
-        rate = len(windows[1:]) / sum(1 / p for p in windows[1:])
         print(f"real data cli.train kitti_raw ({loader} Loader) bf16 320x1152 batch 8: rc {rc} "
               f"steps {last['step']} launches {mine} (the forward once more per evaluation) "
-              f"loss {last['loss']:.5g} eval/aee {[round(v, 4) for v in evals]} pairs/s "
-              f"{rate:.3f} over steps 5-{TRAIN_STEPS} (windows of 4 steps: "
-              f"{[round(p, 3) for p in windows]}) {time.perf_counter() - t:.2f} s", flush=True)
+              f"loss {last['loss']:.5g} eval/aee {[round(v, 4) for v in evals]} "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
         if rc != 0 or mine != expected or last["step"] != TRAIN_STEPS:
             raise AssertionError(f"cli.train on kitti_raw ({loader}): launches {mine}")
         if len(evals) != TRAIN_STEPS // REAL_EVAL_INTERVAL or not np.isfinite(
                 [r["loss"] for r in steps] + evals).all():
             raise AssertionError(f"cli.train on kitti_raw ({loader}): bad metrics.jsonl {records}")
-        pairs_per_s[loader] = rate
         counts.setdefault("packed", mine)
     shutil.rmtree(cfg.experiment_dir("kitti_real_decoded"))
-    print(f"real data train pairs/s, bf16 320x1152 batch 8: packed Loader "
-          f"{pairs_per_s['packed']:.3f}, decoding Loader {pairs_per_s['decoding']:.3f}, ready host "
-          f"batches (Trainer.run above) {ready_pairs_per_s:.3f}", flush=True)
     return counts["packed"]
 
 
@@ -1297,10 +1137,8 @@ def hold_eval_twins(what: str, exp_dir: Path, examples, norm, batch: int) -> dic
         ev = Evaluator(cfg, exp_dir, normalization=norm, device="cuda")
         ev.run(examples, eval_batch=batch)  # warm-up: cuDNN picks its algorithms
         reset_launch_counts()
-        t = time.perf_counter()
         got = ev.run(examples, eval_batch=batch, collect=n)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
         mine = {k: v for k, v in launch_counts().items() if v}
         ref_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, corr_impl="torch"))
         reset_launch_counts()
@@ -1318,8 +1156,7 @@ def hold_eval_twins(what: str, exp_dir: Path, examples, norm, batch: int) -> dic
         print(f"{what} Evaluator.run {dtype} batch {batch}: launches {mine} "
               f"(plain twin: {plain_launches}) flows relative_l2_vs_plain {rel:.3e} (tol "
               f"{tolerance}); AEE {got['aee']:.5f} vs plain {want['aee']:.5f} (relative "
-              f"{aee_rel:.3e}); Fl {got['fl']:.5f} vs {want['fl']:.5f}; {breakdown}; pairs/s "
-              f"{n / wall:.3f} (host clock, incl. PNG decodes)", flush=True)
+              f"{aee_rel:.3e}); Fl {got['fl']:.5f} vs {want['fl']:.5f}; {breakdown}", flush=True)
         if mine != {kernel: forwards} or plain_launches or got["n"] != n:
             raise AssertionError(f"{what} Evaluator.run {dtype}: launches {mine}, plain twin's "
                                  f"{plain_launches}")
@@ -1618,8 +1455,7 @@ def run_supervised(tmp: Path) -> dict[str, dict[str, int]]:
         print(f"supervised cli.train configs/chairs_supervised.ini{what} "
               f"({loader} Loader) bf16 384x512 batch 8: steps {last['step']} launches {mine} "
               f"loss {[round(r['loss'], 4) for r in records]} epe scale0 "
-              f"{last['epe_charbonnier/scale0']:.5g} pairs/s {last['pairs_per_sec']:.3f} "
-              f"step_ms {last['step_ms']:.3f} (the last window) {wall:.2f} s", flush=True)
+              f"{last['epe_charbonnier/scale0']:.5g} {wall:.2f} s", flush=True)
         if mine != expected or "epe_charbonnier/scale4" not in last:
             raise AssertionError(f"supervised cli.train {ex}: launches {mine}")
         if loader == "packed":
@@ -1685,8 +1521,7 @@ def run_affine(tmp: Path) -> dict[str, dict[str, int]]:
     last = records[-1]
     print(f"affine cli.train configs/synthia_pretrain_c_affine.ini (decoding Loader) bf16 512x768 "
           f"batch 8: steps {last['step']} launches {mine} loss "
-          f"{[round(r['loss'], 4) for r in records]} pairs/s {last['pairs_per_sec']:.3f} step_ms "
-          f"{last['step_ms']:.3f} (the last window) {wall:.2f} s", flush=True)
+          f"{[round(r['loss'], 4) for r in records]} {wall:.2f} s", flush=True)
     if mine != expected:
         raise AssertionError(f"affine cli.train: launches {mine}, not {expected}")
     shutil.rmtree(tmp / "log" / "ex" / "synthia_affine")
@@ -1820,8 +1655,7 @@ def run_sintel_middlebury(tmp: Path) -> dict[str, dict[str, int]]:
                                            dataset="sintel", display_interval=2)
     print(f"cli.train configs/sintel_finetune_css.ini (csS from kitti_c, kitti_cs; decoding "
           f"Loader) bf16 384x768 batch 8: steps {records[-1]['step']} launches {mine} loss "
-          f"{[round(r['loss'], 4) for r in records]} pairs/s {records[-1]['pairs_per_sec']:.3f} "
-          f"{wall:.2f} s", flush=True)
+          f"{[round(r['loss'], 4) for r in records]} {wall:.2f} s", flush=True)
     if mine != remat_launches("csS", steps, False):
         raise AssertionError(f"cli.train sintel_finetune_css.ini: launches {mine}")
     paths[f"cli.train sintel_finetune_css.ini, {steps} steps"] = mine
@@ -1850,9 +1684,7 @@ def run_sintel_middlebury(tmp: Path) -> dict[str, dict[str, int]]:
 def run_summaries(tmp: Path) -> dict[str, dict[str, int]]:
     """``cli.train`` (configs/kitti_unsup_c.ini, synthetic, 320x1152, batch 8,
     bf16) with ``tensorboard`` and an image summary every 2 steps, read back
-    with ``read_events``; then ``Trainer.run`` on ready host batches with and
-    without summaries: its step_ms and wall time."""
-    from unflow_tpu_torch.train import Trainer
+    with ``read_events``."""
     from unflow_tpu_torch.utils.tensorboard import read_events
 
     steps = 4
@@ -1872,27 +1704,6 @@ def run_summaries(tmp: Path) -> dict[str, dict[str, int]]:
             or mine != expected):
         raise AssertionError(f"summaries: events {scalar_steps}, images {sorted(images)}")
     shutil.rmtree(ex_dir)
-    timed = {}
-    for label, interval in (("without", -1), ("with", 4)):
-        cfg = train_config(tmp, num_iters=12, display_interval=4, image_summary_interval=interval,
-                           tensorboard=interval > 0)
-        trainer = Trainer(cfg, tmp / f"summary_timed_{label}",
-                          itertools.cycle(host_batches(8, 2)), device="cuda")
-        trainer.run(max_iters=4)  # warm-up
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        trainer.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        last = json.loads((tmp / f"summary_timed_{label}" / "metrics.jsonl")
-                          .read_text().splitlines()[-1])
-        timed[label] = (last["step_ms"], wall)
-        shutil.rmtree(tmp / f"summary_timed_{label}")
-    print(f"summaries, Trainer.run C bf16 320x1152 batch 8 on ready host batches, steps 5-12: "
-          f"step_ms {timed['without'][0]:.3f} without summaries, {timed['with'][0]:.3f} with one "
-          f"every 4 steps (left out of the window); wall {timed['without'][1]:.3f} s vs "
-          f"{timed['with'][1]:.3f} s: {(timed['with'][1] - timed['without'][1]) / 2 * 1e3:.1f} ms "
-          f"per summary (2 in the run, incl. tensorboard)", flush=True)
     return {f"cli.train tensorboard + image summaries, {steps} steps": mine}
 
 
@@ -1911,39 +1722,24 @@ def ddp_worker(spec_path: str) -> int:
     from unflow_tpu_torch.parallel import init_distributed, process_shard
     from unflow_tpu_torch.train import Trainer
 
-    from unflow_tpu_torch.utils.profiling import trace
-
     spec = json.loads(Path(spec_path).read_text())
     init_distributed(spec["device"], backend=spec["backend"])
     rank = process_shard()[0]
     torch.backends.cudnn.allow_tf32 = False  # float32 means float32 in this check
     torch.backends.cuda.matmul.allow_tf32 = False
-    run, train_step = Trainer.run, Trainer.train_step
-
-    def profiled(self, batch, _at=None, _dir=None):
-        if self.step != _at:
-            return train_step(self, batch)
-        with trace(_dir):
-            return train_step(self, batch)
-
+    run = Trainer.run
     results = []
     for job in spec["jobs"]:
         torch.backends.cudnn.deterministic = job["deterministic"]
         # a job cut at ``stop_after`` steps stands for a run that was killed there
         Trainer.run = (lambda self, max_iters=None, _n=job.get("stop_after"): run(self, _n)
                        ) if job.get("stop_after") else run
-        # the step after ``profile_step`` steps runs under the profiler
-        Trainer.train_step = (lambda self, batch, _at=job.get("profile_step"),
-                              _dir=f"{spec['out']}_{job['name']}_rank{rank}":
-                              profiled(self, batch, _at, _dir)) if "profile_step" in job else train_step
         reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         rc = train_main(job["argv"])
         torch.cuda.synchronize()
         results.append({"name": job["name"], "rc": rc, "seconds": time.perf_counter() - t,
-                        "launches": {k: v for k, v in launch_counts().items() if v},
-                        "peak_mib": torch.cuda.max_memory_allocated() / 2**20})
+                        "launches": {k: v for k, v in launch_counts().items() if v}})
     Path(f"{spec['out']}.{rank}").write_text(json.dumps(results))
     torch.distributed.destroy_process_group()
     return 0
@@ -1970,46 +1766,6 @@ def run_torchrun(tmp: Path, nproc: int, jobs: list[dict], device: str,
     if proc.returncode != 0:
         raise AssertionError(f"torchrun failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     return [json.loads(Path(f"{out}.{rank}").read_text()) for rank in range(nproc)]
-
-
-def allreduce_in_trace(path: Path) -> str:
-    """What a profiled train step's trace shows of the gradients' all-reduce:
-    for each event named all-reduce (the launch on the autograd thread, the
-    backend's own work, an NCCL kernel), its count and time, and how much of
-    that time lies inside the backward pass (the span of the autograd
-    engine's functions) and after it, beside the step's span."""
-    events = [e for e in json.loads(path.read_text())["traceEvents"]
-              if e.get("ph") == "X" and "dur" in e]
-    start = min(e["ts"] for e in events)
-    end = max(e["ts"] + e["dur"] for e in events)
-    bwd = [e for e in events if e["name"].startswith("autograd::engine::evaluate_function")]
-    if not bwd:  # one rank replays the step as a CUDA graph: no autograd on the host
-        return f"step span {(end - start) / 1e3:.3f} ms, no backward pass on the host"
-    b0, b1 = min(e["ts"] for e in bwd), max(e["ts"] + e["dur"] for e in bwd)
-    names: dict[str, list[float]] = {}
-    for e in events:
-        if "allreduce" in e["name"].lower().replace("_", ""):
-            row = names.setdefault(e["name"][:48], [0, 0.0, 0.0, 0.0])
-            row[0] += 1
-            row[1] += e["dur"] / 1e3
-            row[2] += max(0.0, min(e["ts"] + e["dur"], b1) - max(e["ts"], b0)) / 1e3
-            row[3] += max(0.0, e["ts"] + e["dur"] - max(e["ts"], b1)) / 1e3
-    rows = "; ".join(f"{name} x{n} {ms:.3f} ms ({inside:.3f} inside the backward, {after:.3f} "
-                     f"after it)" for name, (n, ms, inside, after) in names.items())
-    return (f"step span {(end - start) / 1e3:.3f} ms, backward {(b1 - b0) / 1e3:.3f} ms "
-            f"(ends {(end - b1) / 1e3:.3f} ms before the step does); {rows or 'no all-reduce'}")
-
-
-def collective_time(path: Path) -> str:
-    """A profiled step's all-reduce calls (each a dispatch of
-    ``c10d::allreduce_``) and the device's busy time beside the step's span."""
-    events = [e for e in json.loads(path.read_text())["traceEvents"]
-              if e.get("ph") == "X" and "dur" in e]
-    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
-    calls = sum(e["name"] == "c10d::allreduce_" for e in events)
-    busy = sum(e["dur"] for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    return (f"{calls} all_reduce calls; device busy {busy / 1e3:.3f} ms of the step's "
-            f"{span / 1e3:.3f} ms")
 
 
 def _records(tmp: Path, ex: str) -> list[dict]:
@@ -2059,7 +1815,7 @@ def hold_run(tmp: Path, label: str, mine: str, ref: str, steps: int, tol: float,
         raise AssertionError(f"{label}: {mine} does not follow {ref}")
 
 
-def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dict]]:
+def run_distributed(tmp: Path) -> dict[str, dict[str, int]]:
     """The data-parallel path: ``cli.train`` under ``torchrun`` on the packed
     KITTI raw tree (configs/kitti_unsup_c.ini, 320x1152, global batch 8).
     One rank over NCCL: bf16 for ``DDP_STEPS`` steps, then one step each in
@@ -2069,8 +1825,8 @@ def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dic
     (the same config, so the same init and batches); then csS (cuDNN
     deterministic) four steps uninterrupted and as two segments cut at step
     2, which must agree bit for bit. Returns the launch counts of each run,
-    summed over its ranks, and the one-rank runs' results by name (their
-    experiments stay, as ``run_spatial``'s references)."""
+    summed over its ranks (the one-rank runs' experiments stay, as
+    ``run_spatial``'s references)."""
     from unflow_tpu_torch.models import DTYPES
     from unflow_tpu_torch.ops.cuda.correlation import kernel_name
 
@@ -2088,7 +1844,6 @@ def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dic
     shutil.copy(tmp / CSS_CONFIG.name, css_ini)
     runs = {"bf16": ("bfloat16", DDP_STEPS, False), "bf16_step": ("bfloat16", 1, False),
             "f32_step": ("float32", 1, True)}
-    profile_step = DDP_STEPS - 1  # the last step of the bf16 run, profiled
 
     def job(name, ranks, dtype="bfloat16", steps=4, deterministic=True, config=css_ini,
             sets=(), **extra):
@@ -2100,12 +1855,8 @@ def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dic
             argv += ["--set", f"save_interval={steps}"]
         return {"name": name, "argv": argv, "deterministic": deterministic, **extra}
 
-    one = run_torchrun(tmp, 1, [job(n, 1, *r, config=ini, **({"profile_step": profile_step}
-                                                             if n == "bf16" else {}))
-                                for n, r in runs.items()], "cuda", None)
-    two = run_torchrun(tmp, 2, [job(n, 2, *r, config=ini, **({"profile_step": profile_step}
-                                                             if n == "bf16" else {}))
-                                for n, r in runs.items()] + [
+    one = run_torchrun(tmp, 1, [job(n, 1, *r, config=ini) for n, r in runs.items()], "cuda", None)
+    two = run_torchrun(tmp, 2, [job(n, 2, *r, config=ini) for n, r in runs.items()] + [
         job("css", 2), job("css_split", 2, stop_after=2), job("css_split", 2),
         # one bf16 step with per-stage rematerialization, against one rank without
         job("bf16_step_remat", 2, "bfloat16", 1, False, config=ini, sets=["remat=true"]),
@@ -2117,8 +1868,7 @@ def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dic
             per_rank = [r[i]["launches"] for r in results]
             total = {k: sum(c.get(k, 0) for c in per_rank) for k in per_rank[0]}
             print(f"distributed {ranks} rank(s) {res['name']}: rc {[r[i]['rc'] for r in results]} "
-                  f"launches per rank {per_rank} {res['seconds']:.2f} s, peak MiB per rank "
-                  f"{[round(r[i]['peak_mib'], 1) for r in results]}", flush=True)
+                  f"launches per rank {per_rank} {res['seconds']:.2f} s", flush=True)
             if any(r[i]["rc"] != 0 for r in results):
                 raise AssertionError(f"{res['name']} failed")
             if res["name"] in runs:
@@ -2142,19 +1892,8 @@ def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dic
                  f"ddp_{name}_2", f"ddp_{name}_1", runs[name][1], tol, start)
     hold_run(tmp, "distributed bf16_step_remat: 2 ranks with remat against 1 rank without, "
              "global batch 8", "ddp_bf16_step_remat_2", "ddp_bf16_step_1", 1, 2e-2, start)
-    for ranks in (1, 2):
-        # after the first step's warm-up, before the profiled one
-        rec = _records(tmp, f"ddp_bf16_{ranks}")[1:profile_step]
-        step_ms = statistics.mean(r["step_ms"] for r in rec)
-        print(f"distributed bf16 320x1152 global batch 8, {ranks} rank(s): step_ms {step_ms:.3f}"
-              f" pairs/s {8e3 / step_ms:.3f} (steps 2-{profile_step}, the Trainer's windows: "
-              f"{[round(r['step_ms'], 3) for r in rec]})", flush=True)
-        profile = Path(f"{tmp / f'torchrun_{ranks}'}_bf16_rank0") / "trace.json"
-        print(f"  profile of step {profile_step + 1}, rank 0: {allreduce_in_trace(profile)}",
-              flush=True)
     # the 2-rank run's checkpoint serves the 1-process Evaluator
-    launches, _ = run_eval("bfloat16", "corr_fwd_bf16", 2e-2,
-                           exp_dir=tmp / "log" / "ex" / "ddp_bf16_2")
+    launches = run_eval("bfloat16", "corr_fwd_bf16", 2e-2, exp_dir=tmp / "log" / "ex" / "ddp_bf16_2")
     paths["Evaluator(exp_dir=2-rank checkpoint) bf16, batch 4"] = {"corr_fwd_bf16": launches}
     whole, split = _records(tmp, "ddp_css_2"), _records(tmp, "ddp_css_split_2")
     p1, p2 = (_checkpoint(tmp, ex, 4)["model"] for ex in ("ddp_css_2", "ddp_css_split_2"))
@@ -2169,17 +1908,17 @@ def run_distributed(tmp: Path) -> tuple[dict[str, dict[str, int]], dict[str, dic
     for ex in [f"ddp_{n}_2" for n in runs] + ["ddp_css_2", "ddp_css_split_2",
                                               "ddp_bf16_step_remat_2"]:
         shutil.rmtree(tmp / "log" / "ex" / ex)
-    return paths, {res["name"]: res for res in one[0]}
+    return paths
 
 
-def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
+def run_spatial(tmp: Path) -> dict[str, dict[str, int]]:
     """W-sharding (``spatial_shards=2``) through ``cli.train`` under
     ``torchrun`` on the packed KITTI raw tree, configs/kitti_unsup_c.ini at
     320x1152, global batch 8; each rank holds a W-slab of 576 columns. Two
     spatial ranks (one per card over NCCL with two cards or more, else both
     on one card over gloo): bf16 for ``DDP_STEPS`` steps, then one bf16 and
     one f32 step (TF32 off, cuDNN deterministic), held against
-    ``run_distributed``'s one-rank runs of the same config (``one``); one csS
+    ``run_distributed``'s one-rank runs of the same config; one csS
     step (the glue's warps, the frozen stages) and one ``disocc`` step (the
     splat) in bf16, held against the same steps in this process. Then the
     2x2 grid (4 ranks: 2 data x 2 spatial; on one card over gloo with fewer
@@ -2187,17 +1926,12 @@ def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
     (``spatial_shards=4``: the 18 columns of the deepest level split 5, 5, 4,
     4, so uneven slabs of 320, 320, 256 and 256 columns), one f32 step
     against the one-rank one. Limits: bf16 2e-2, f32 1e-4, on the losses,
-    the one-step gradient and the parameters. Prints each rank's peak memory
-    beside one rank's, step_ms and the launches. Returns the launch counts of
-    each run, summed over its ranks."""
+    the one-step gradient and the parameters; each rank's launches a step
+    asserted. Returns the launch counts of each run, summed over its ranks."""
     from unflow_tpu_torch.cli.train import main as train_main
     from unflow_tpu_torch.config import load_config
     from unflow_tpu_torch.models import DTYPES
-    from unflow_tpu_torch.ops.cuda.correlation import (
-        kernel_name,
-        launch_counts,
-        reset_launch_counts,
-    )
+    from unflow_tpu_torch.ops.cuda.correlation import kernel_name
 
     cards = torch.cuda.device_count()
     ini, css_ini = tmp / "ddp_c.ini", tmp / "ddp_css.ini"  # run_distributed's configs
@@ -2205,20 +1939,13 @@ def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
     # in this process: the one-rank references of csS and disocc
     singles = {"css": (css_ini, {}), "disocc": (ini, {"mask_occlusion": "disocc"})}
     for name, (config, extra) in singles.items():
-        reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
         argv = ["--config", str(config), "--ex", f"sp_{name}_1", "--set", "compute_dtype=bfloat16",
                 "--set", "num_iters=1", "--set", "save_interval=1"]
         rc = train_main(argv + [x for k, v in extra.items() for x in ("--set", f"{k}={v}")])
-        torch.cuda.synchronize()
-        one[name] = {"name": name, "rc": rc, "seconds": time.perf_counter() - t,
-                     "launches": {k: v for k, v in launch_counts().items() if v},
-                     "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
         if rc != 0:
             raise AssertionError(f"one-rank {name} failed")
 
-    # the one-rank reference of each run: its experiment by name of ``one``
+    # the one-rank reference of each run: its experiment by name
     one_ex = {"bf16": "ddp_bf16_1", "bf16_step": "ddp_bf16_step_1",
               "f32_step": "ddp_f32_step_1", "css": "sp_css_1", "disocc": "sp_disocc_1"}
     # name -> (dtype, steps, deterministic, config, extra keys, ranks, reference);
@@ -2241,9 +1968,7 @@ def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
                 f"save_interval={steps}", "--set", "spatial_shards=2",
                 "--device", "cuda" if cards >= ranks else "cuda:0"]
         argv += [x for k, v in extra.items() for x in ("--set", f"{k}={v}")]
-        # the last step of the bf16 run, profiled (as run_distributed's)
-        profiled = {"profile_step": DDP_STEPS - 1} if name == "bf16" else {}
-        return {"name": name, "argv": argv, "deterministic": deterministic, **profiled}
+        return {"name": name, "argv": argv, "deterministic": deterministic}
 
     results = {}
     for ranks in (2, 4):
@@ -2270,9 +1995,7 @@ def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
         shards = extra.get("spatial_shards", 2)
         print(f"spatial {name} ({ranks} ranks, {ranks // shards} data x {shards} spatial): rc "
               f"{[r['rc'] for r in per_rank]} launches per "
-              f"rank {counts} (summed {total}) {per_rank[0]['seconds']:.2f} s; peak MiB per rank "
-              f"{[round(r['peak_mib'], 1) for r in per_rank]} against one rank's "
-              f"{one[ref]['peak_mib']:.1f}", flush=True)
+              f"rank {counts} (summed {total}) {per_rank[0]['seconds']:.2f} s", flush=True)
         if any(r["rc"] != 0 for r in per_rank) or any(c != expected for c in counts):
             raise AssertionError(f"spatial {name}: launches {counts}, want {expected} a rank")
         paths[f"torchrun {ranks} ranks spatial_shards={shards}, cli.train kitti_raw packed "
@@ -2282,17 +2005,6 @@ def run_spatial(tmp: Path, one: dict[str, dict]) -> dict[str, dict[str, int]]:
         hold_run(tmp, f"spatial {name}: {ranks // shards} data x {shards} spatial against 1 rank",
                  f"sp_{name}_{ranks}", one_ex[ref], steps, 2e-2 if dtype == "bfloat16" else 1e-4,
                  None if name == "css" else start)
-    for ranks in (1, 2):
-        ex = "ddp_bf16_1" if ranks == 1 else "sp_bf16_2"
-        rec = _records(tmp, ex)[1:DDP_STEPS - 1]  # after the first step's warm-up
-        step_ms = statistics.mean(r["step_ms"] for r in rec)
-        print(f"spatial bf16 320x1152 global batch 8, {ranks} rank(s) "
-              f"{'(spatial_shards=2)' if ranks == 2 else ''}: step_ms {step_ms:.3f} pairs/s "
-              f"{8e3 / step_ms:.3f} (steps 2-{DDP_STEPS - 1}: "
-              f"{[round(r['step_ms'], 3) for r in rec]})", flush=True)
-    trace = Path(f"{tmp / 'torchrun_spatial2'}_bf16_rank0") / "trace.json"
-    print(f"  profile of the sharded step {DDP_STEPS}, rank 0: {allreduce_in_trace(trace)}; "
-          f"{collective_time(trace)}", flush=True)
     for ex in [f"sp_{name}_{run[5]}" for name, run in runs.items()] + list(one_ex.values()):
         shutil.rmtree(tmp / "log" / "ex" / ex)
     return paths
@@ -2309,39 +2021,26 @@ def config_init(ini: Path) -> dict:
     return model.state_dict()
 
 
-def run_flops(ready_pairs_per_s: float) -> None:
+def run_flops() -> None:
     """The conv/matmul FLOPs of the UnFlow-C bf16 step at 320x1152, batch 8
     (``utils/flops.py``'s per-site breakdown, counted and keyed as the JAX
-    package counts them; its sites must sum to the JAX package's count), and
-    the MFU of phase 4's timed step against this card's dense bf16 peak."""
-    from unflow_tpu_torch.utils.flops import breakdown, peak_flops
+    package counts them): its sites must sum to the JAX package's count."""
+    from unflow_tpu_torch.utils.flops import breakdown
 
-    t = time.perf_counter()
     sites = breakdown()
     flops = sum(sites.values())
     if flops != UNFLOW_C_FLOPS:
         raise AssertionError(f"flops: {flops:,} FLOPs a step, the JAX package counts "
                              f"{UNFLOW_C_FLOPS:,}")
     top = [(k, f"{v / flops:.3f}") for k, v in sorted(sites.items(), key=lambda kv: -kv[1])[:3]]
-    print(f"flops: {len(sites)} sites, the largest {top}", flush=True)
-    peak = peak_flops()
-    name = torch.cuda.get_device_name(0)
-    step_s = 8 / ready_pairs_per_s
-    print(f"flops: UnFlow-C bf16 320x1152 batch 8 train step {flops:,} FLOPs (traced on fake "
-          f"tensors in {time.perf_counter() - t:.2f} s)", flush=True)
-    if peak is None:
-        print(f"flops: no dense bf16 peak is known for {name!r}: MFU not computed", flush=True)
-    else:
-        print(f"flops: MFU of phase 4's Trainer.run step ({step_s * 1e3:.3f} ms, "
-              f"{ready_pairs_per_s:.3f} pairs/s) {flops / step_s / peak:.4f} of {name}'s "
-              f"{peak / 1e12:.0f} TFLOP/s dense bf16 peak ({flops / step_s / 1e12:.2f} TFLOP/s)",
-              flush=True)
+    print(f"flops: UnFlow-C bf16 320x1152 batch 8 train step {flops:,} FLOPs in {len(sites)} "
+          f"sites, the largest {top}", flush=True)
 
 
-def run_profile_hooks(tmp: Path, ready_pairs_per_s: float) -> None:
+def run_profile_hooks(tmp: Path) -> None:
     """``utils.profiling.trace`` around two bf16 train steps writes a trace
     that reads back and names the three tensor-core correlation kernels and
-    the port's spans; the spans' host time a step beside the Trainer's rate."""
+    the replay's span."""
     from unflow_tpu_torch.train import Trainer
     from unflow_tpu_torch.utils import profiling
 
@@ -2350,25 +2049,19 @@ def run_profile_hooks(tmp: Path, ready_pairs_per_s: float) -> None:
                       device="cuda")
     for _ in range(3):  # warm-up
         trainer.train_step(next(trainer.batches))
-    profiling.reset()
     with profiling.trace(tmp / "profile_hooks" / "trace") as prof:
         for _ in range(2):
             trainer.train_step(next(trainer.batches))
-    spans = profiling.summary()["spans"]
     path = tmp / "profile_hooks" / "trace" / "trace.json"
     events = json.loads(path.read_text())["traceEvents"]
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
-    mine = sorted({k for k in kernels for word in PROFILE_GROUPS["correlation kernels (this repo)"]
-                   if word in k})
+    names = ("corr_fwd_mma_kernel", "corr_bwd_f1_mma_kernel", "corr_bwd_f2_mma_kernel")
+    mine = sorted(k for k in kernels if any(n in k for n in names))
     print(f"profile hooks: trace.json {path.stat().st_size / 2**20:.1f} MiB, {len(events)} events, "
           f"{len(kernels)} kernel names, correlation kernels {[k[:60] for k in mine]}; "
           f"{len(prof.key_averages())} ops and kernels by name", flush=True)
-    per_step = {k: f"{v['self_ns'] / 2e6:.3f}" for k, v in spans.items()}
-    print(f"profile hooks: host ms a step by span (self, under the profiler) {per_step}; the "
-          f"Trainer's pairs_per_sec (phase 4, unprofiled) {ready_pairs_per_s:.3f}", flush=True)
     if "unflow.train.replay" not in {e.get("name") for e in events}:
         raise AssertionError("the trace names no unflow.train.replay span")
-    names = ("corr_fwd_mma_kernel", "corr_bwd_f1_mma_kernel", "corr_bwd_f2_mma_kernel")
     if not all(any(n in k for k in mine) for n in names):
         raise AssertionError(f"the trace names no tensor-core correlation kernel: {mine}")
     shutil.rmtree(tmp / "profile_hooks")
@@ -2398,20 +2091,18 @@ def run_native(tmp: Path) -> None:
                         loop=False, num_threads=4, image_dtype="float32")
         return out, list(loader)
 
-    timings = {}
+    decoded = {}
     for mode in ("0", "1"):
         os.environ["UNFLOW_NATIVE"] = mode
-        t = time.perf_counter()
-        timings[mode] = (read_all(), time.perf_counter() - t)
+        decoded[mode] = read_all()
     os.environ.pop("UNFLOW_NATIVE")
-    (plain, plain_batches), (mine, batches) = timings["0"][0], timings["1"][0]
+    (plain, plain_batches), (mine, batches) = decoded["0"], decoded["1"]
     same = (all(np.array_equal(a, b) for a, b in zip(mine, plain))
             and len(batches) == len(plain_batches)
             and all(np.array_equal(a[k], b[k]) for a, b in zip(batches, plain_batches) for k in a))
     print(f"native decode: {len(frames)} frames and {len(flows)} KITTI flows at 375x1242, a Loader "
           f"epoch of {len(batches)} batches: {'bit-identical' if same else 'DIFFERENT'} to PIL / "
-          f"numpy; {timings['1'][1]:.2f} s native, {timings['0'][1]:.2f} s PIL / numpy "
-          f"(host clock)", flush=True)
+          f"numpy", flush=True)
     if not same or not frames or not flows:
         raise AssertionError("the native sidecar does not decode what PIL / numpy decodes")
 
@@ -2449,7 +2140,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         report["corr_fwd_bf16"]["launches"] = run_cli(Path(tmp))
     run_eval("bfloat16", "corr_fwd_bf16", 2e-2)
-    report["corr_fwd_f32"]["launches"], _ = run_eval("float32", "corr_fwd_f32", 1e-4)
+    report["corr_fwd_f32"]["launches"] = run_eval("float32", "corr_fwd_f32", 1e-4)
     lap("serving")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2470,9 +2161,7 @@ def main() -> int:
         run_train_twin(tmp, "bfloat16", 8, 2e-2)
         run_train_twin(tmp, "float32", 2, 1e-4, control=True)
         run_train_twin(tmp, "bfloat16", 8, 2e-2, corr_stride=4)
-        c_plain = run_train_timed(tmp)
-        ready_pairs_per_s = c_plain["pairs_per_s"]
-        run_train_profiled_f32(tmp)
+        run_f32_step(tmp)
         lap("training")
 
         run_recipe(tmp)
@@ -2483,10 +2172,8 @@ def main() -> int:
         for seed in (5, 6, 7):
             run_train_twin(tmp, "float32", 2, 1e-4, config=CSS_CONFIG, seed=seed, control=True,
                            flownet="CSS", train_all=True, finetune=())
-        run_cudnn_spread(tmp)
         lap("the cascades")
-        # the timed csS and CSS runs of the cascades, each beside its run with remat
-        paths = run_remat(tmp, c_plain)
+        paths = run_remat(tmp)
         # remat recomputes the same ops on the same inputs: bf16 C equal, f32
         # CSS within the gathers' atomics (the control reads about 1e-7)
         run_train_twin(tmp, "bfloat16", 8, 0, remat=True)
@@ -2495,8 +2182,7 @@ def main() -> int:
         lap("remat")
 
         write_kitti_trees(tmp / "data")
-        paths["cli.train kitti_raw, packed, 12 steps, eval every 6"] = run_real_train(
-            tmp, ready_pairs_per_s)
+        paths["cli.train kitti_raw, packed, 12 steps, eval every 6"] = run_real_train(tmp)
         for dtype, counts in run_real_eval(tmp).items():
             paths[f"Evaluator.run {dtype} kitti_2012, 8 pairs, batch 4"] = counts
         paths["heldout, 4 steps, 2 evals of 8 batches"] = run_heldout_short(tmp, keep=True)
@@ -2526,13 +2212,12 @@ def main() -> int:
         paths.update(run_sintel_middlebury(tmp))
         lap("synthia_c, sintel, middlebury")
         paths.update(run_summaries(tmp))
-        ddp_paths, one_rank = run_distributed(tmp)
-        paths.update(ddp_paths)
+        paths.update(run_distributed(tmp))
         lap("summaries, distributed")
-        paths.update(run_spatial(tmp, one_rank))
+        paths.update(run_spatial(tmp))
         lap("spatial")
-        run_flops(ready_pairs_per_s)
-        run_profile_hooks(tmp, ready_pairs_per_s)
+        run_flops()
+        run_profile_hooks(tmp)
         run_native(tmp)
     # the paths of the later phases, beside each kernel's main path
     for path, counts in paths.items():
