@@ -4,17 +4,20 @@ Port of ``unflow_tpu/eval/evaluate.py::Evaluator``: ``predict`` and
 ``predict_batch`` send raw [0, 1] frames to the device, pad them there with
 zeros to a multiple of 64, normalize them with the dataset's constants, run
 the network, upsample its finest flow to the padded size and crop it back
-before the copy to the host; ``run`` evaluates a list of examples in
-same-shape batches, averages AEE and Fl (``eval/metrics.py``) over the
-examples with ground truth, with the occluded / non-occluded breakdown where
-the examples carry one, and can dump the flows as ``.flo``, KITTI 16-bit
-PNGs or color images.
+before the copy to the host; on a GPU the network and the upsampling at
+each input shape are replayed as a CUDA graph (:class:`ForwardGraphs`).
+``run`` evaluates a list of examples in same-shape batches, averages AEE
+and Fl (``eval/metrics.py``) over the examples with ground truth, with the
+occluded / non-occluded breakdown where the examples carry one, and can
+dump the flows as ``.flo``, KITTI 16-bit PNGs or color images.
 """
 
 from __future__ import annotations
 
+import functools
+from collections import OrderedDict
 from pathlib import Path
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +32,7 @@ from unflow_tpu_torch.device import resolve_device
 from unflow_tpu_torch.eval.flow_viz import flow_error_image, flow_to_color
 from unflow_tpu_torch.eval.metrics import flow_error_avg, outlier_fraction
 from unflow_tpu_torch.models import DTYPES, FlowNetStack, build_model, full_res_flow
+from unflow_tpu_torch.ops.cuda.correlation import launch_counts
 from unflow_tpu_torch.train.checkpoint import restore_params
 from unflow_tpu_torch.utils.profiling import count, span
 
@@ -45,6 +49,94 @@ def predict_flow(
     )
     h, w = im1.shape[1:3]
     return full_res_flow(stages[-1], h, w).permute(0, 2, 3, 1)
+
+
+def _padded_flow(model: FlowNetStack, inputs: torch.Tensor) -> torch.Tensor:
+    """The network's two (B, 3, hp, wp) inputs stacked -> the (B, hp, wp, 2)
+    flow upsampled at the padded size."""
+    stages = model(inputs[0], inputs[1])
+    hp, wp = inputs.shape[-2:]
+    return full_res_flow(stages[-1], hp, wp).permute(0, 2, 3, 1)
+
+
+# forward graphs kept at once; past it the least recently used one goes
+GRAPH_CAP = 4
+
+
+class ForwardGraphs:
+    """``forward(inputs) -> output`` on a GPU, one CUDA graph per input shape.
+
+    A key is what the code sees in its input: shape, dtype and device. The
+    first call of a key runs eagerly on a side stream: it loads the kernels
+    and makes cuDNN's plans and the allocator's blocks, none of which may
+    first appear inside a capture. The second call of the key is captured
+    and at once replayed, and so is every later one. Past :data:`GRAPH_CAP`
+    keys the least recently used one is dropped with its graph, so a run
+    over many shapes holds at most that many graphs; a key seen once stays
+    eager.
+
+    A replay copies the input into the graph's fixed buffer (which keeps
+    the strides of the first input it captured) and returns the graph's own
+    output, which the next replay of that key overwrites. The graph reads
+    the parameters of ``forward``'s module where they were at the capture.
+    The correlation kernels' launch counters (``launch_counts()``) count on
+    the host at launch, which a replay skips: the launches counted while the
+    graph was captured are taken back, and each replay adds them, so that
+    the counters read a forward's launches on either path. Each replay adds
+    one to the counter ``infer.graph_replays``.
+
+    The graphs go when this object goes, so ``forward`` must hold nothing
+    that holds it: in a reference cycle the graphs would wait for the
+    cyclic collector, which may free them while another graph is being
+    captured, and that breaks the capture.
+    """
+
+    def __init__(self, forward: Callable[[torch.Tensor], torch.Tensor], device: torch.device):
+        self._forward = forward
+        self._stream = torch.cuda.Stream(device)
+        # key -> (graph, input buffer, output, launches), or None once warmed up
+        self._graphs: OrderedDict[tuple, tuple | None] = OrderedDict()
+
+    def __len__(self) -> int:
+        """The graphs held."""
+        return sum(g is not None for g in self._graphs.values())
+
+    def __call__(self, inputs: torch.Tensor) -> torch.Tensor:
+        key = (tuple(inputs.shape), inputs.dtype, inputs.device)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            if len(self._graphs) > GRAPH_CAP:
+                self._graphs.popitem(last=False)
+            return self._warm_up(inputs)
+        self._graphs.move_to_end(key)
+        if self._graphs[key] is None:
+            self._graphs[key] = self._capture(inputs)
+        graph, buffer, out, launches = self._graphs[key]
+        buffer.copy_(inputs)
+        graph.replay()
+        for name, n in launches.items():
+            count(name, n)
+        count("infer.graph_replays")
+        return out
+
+    def _warm_up(self, inputs: torch.Tensor) -> torch.Tensor:
+        current = torch.cuda.current_stream(inputs.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            out = self._forward(inputs)
+        current.wait_stream(self._stream)
+        return out
+
+    def _capture(self, inputs: torch.Tensor) -> tuple:
+        buffer = torch.empty_like(inputs)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream):
+            out = self._forward(buffer)
+        launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+        for name, n in launches.items():  # a capture launches nothing: its replay counts
+            count(name, -n)
+        return graph, buffer, out, launches
 
 
 class Evaluator:
@@ -74,6 +166,12 @@ class Evaluator:
         self.model = build_model(cfg, self.device)
         self.model.load_state_dict(params)
         self.model.to(DTYPES[cfg.train.compute_dtype]).eval()
+        # over the model, not the Evaluator: ForwardGraphs says why
+        self._forward = functools.partial(_padded_flow, self.model)
+        if self.device.type == "cuda":
+            self._forward = ForwardGraphs(self._forward, self.device)
+            # present from the start, so that a GPU run with no replay reads 0
+            count("infer.graph_replays", 0)
 
     def predict(self, im1: np.ndarray, im2: np.ndarray) -> np.ndarray:
         """Single unbatched pair (H, W, 3) -> (H, W, 2) flow; pads to /64."""
@@ -90,16 +188,27 @@ class Evaluator:
         upsamples the flow at the padded size and crops it to (H, W); only
         the crop is copied back.
 
+        On a GPU the network and the upsampling are replayed as a CUDA graph
+        (:class:`ForwardGraphs`), keyed by the network input's shape (B, the
+        padded H and W), dtype and device: the first request of a key runs
+        eagerly, the second is captured and replayed, every later one
+        replayed; at most :data:`GRAPH_CAP` graphs are kept, the least
+        recently used dropped past it. A replay runs the same kernels on
+        the same input as the eager forward, so its flow is the same. On
+        the CPU every request runs eagerly.
+
         Under a ``torch.profiler`` profile the call is the span
         ``unflow.infer.request`` (unit: the request's number) with the
         children ``unflow.infer.h2d`` (both frames' copies in),
         ``unflow.infer.pad`` (the dispatch of the padding and the
         normalization), ``unflow.infer.forward`` (the network's dispatch,
-        the upsampling and the crop) and ``unflow.infer.d2h``
+        the upsampling and the crop; on a replay the copy into the graph's
+        input buffer and its launch) and ``unflow.infer.d2h``
         (``flow.cpu()``: the wait for the device's queued work and the copy
         back). The counters ``infer.requests``, ``infer.padded_requests``
-        (requests whose frames were padded), ``infer.h2d_bytes`` and
-        ``infer.d2h_bytes`` are always on."""
+        (requests whose frames were padded), ``infer.h2d_bytes``,
+        ``infer.d2h_bytes`` and, on a GPU, ``infer.graph_replays`` (requests
+        whose forward was replayed) are always on."""
         if ims1.shape != ims2.shape:
             raise ValueError(f"frames of shapes {ims1.shape} and {ims2.shape}; a pair shares one")
         b, h, w, _ = ims1.shape
@@ -113,11 +222,10 @@ class Evaluator:
                     dst.copy_(torch.from_numpy(np.ascontiguousarray(ims, dtype=np.float32)))
             count("infer.h2d_bytes", frames.numel() * frames.element_size())
             with span("unflow.infer.pad"):
-                n1, n2 = self._network_input(frames, hp, wp)
+                inputs = self._network_input(frames, hp, wp)
             count("infer.padded_requests", int((hp, wp) != (h, w)))
             with span("unflow.infer.forward"):
-                stages = self.model(n1, n2)
-                flow = full_res_flow(stages[-1], hp, wp).permute(0, 2, 3, 1)[:, :h, :w]
+                flow = self._forward(inputs)[:, :h, :w]
             with span("unflow.infer.d2h"):
                 flow = flow.cpu()
             count("infer.d2h_bytes", flow.numel() * flow.element_size())
