@@ -37,6 +37,7 @@ LOSS_RTOL = 1e-3
 CASES = {
     "c": dict(flownet="C", grad_clip_norm=1.0),
     "css": dict(flownet="csS"),
+    "css_joint": dict(flownet="CSS"),
     "supervised": dict(flownet="C", supervised=True),
     "remat": dict(flownet="C", remat=True),
 }

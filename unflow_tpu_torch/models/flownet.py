@@ -51,7 +51,7 @@ from unflow_tpu_torch.ops.correlation import displacement_count
 from unflow_tpu_torch.ops.downsample import resize_bilinear
 from unflow_tpu_torch.ops.warp import backward_warp
 from unflow_tpu_torch.parallel import spatial
-from unflow_tpu_torch.utils.profiling import device_span
+from unflow_tpu_torch.utils.profiling import device_span, device_span_after_grad
 
 FLOW_SCALE = 5.0
 
@@ -270,7 +270,11 @@ class FlowNetStack(nn.Module):
         device as ``unflow.dev.frozen`` (a lowercase stage) or
         ``unflow.dev.trainable_fwd``, and the glue before a later stage (the
         warp, the brightness error, the concatenation) as ``unflow.dev.glue``
-        (``utils/profiling.py::device_span``)."""
+        (``utils/profiling.py::device_span``). Where an earlier stage is
+        trainable, ``unflow.dev.cascade_bwd`` times the backward pass from
+        the last stage's input on (the glue's and the earlier stages'): it
+        starts when autograd has computed that input's gradient and ends
+        with the train step's ``unflow.dev.backward``."""
         h, w = im1.shape[-2:]
         dt = self.compute_dtype
         stage_flows: list[list[torch.Tensor]] = []
@@ -294,6 +298,9 @@ class FlowNetStack(nn.Module):
                     err = torch.sqrt(torch.sum(torch.square(im1.to(dt) - warped), 1, keepdim=True)
                                      + 1e-6)
                     x = (torch.cat([im1.to(dt), im2.to(dt), warped, flow_prev.to(dt), err], 1),)
+                if i == len(self.spec) - 1 and any(c.isupper() for c in self.spec[:i]):
+                    device_span_after_grad("unflow.dev.cascade_bwd", x[0],
+                                           until="unflow.dev.backward")
             with device_span("unflow.dev.frozen" if ch.islower() else "unflow.dev.trainable_fwd",
                              im1):
                 flows = net(*x)

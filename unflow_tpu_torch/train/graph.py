@@ -61,9 +61,11 @@ class StepGraph:
     The device spans of a step (``utils/profiling.py::device_span``) are
     queued by each eager step but the warm-up; the capture keeps the ones it
     recorded, which every replay records again, and queues them after each
-    replay. Before the next replay overwrites them, the previous replay's
-    times are read if the device has passed them (``read_device_steps``),
-    else dropped.
+    replay. A span that a gradient hook starts (``device_span_after_grad``)
+    is recorded on autograd's device thread on the capture stream, so the
+    capture keeps it like the others. Before the next replay overwrites
+    them, the previous replay's times are read if the device has passed them
+    (``read_device_steps``), else dropped.
     """
 
     def __init__(self, finish: Callable[..., dict], device: torch.device):

@@ -80,7 +80,13 @@ from unflow_tpu_torch.train.graph import StepGraph
 from unflow_tpu_torch.train.schedule import piecewise_halving
 from unflow_tpu_torch.train.summaries import ImageSummaryWriter
 from unflow_tpu_torch.utils import MetricsLogger
-from unflow_tpu_torch.utils.profiling import count, device_step, read_device_steps, span
+from unflow_tpu_torch.utils.profiling import (
+    count,
+    device_span,
+    device_step,
+    read_device_steps,
+    span,
+)
 
 
 @dataclasses.dataclass
@@ -233,10 +239,12 @@ def make_train_step(
     dispatched eagerly. ``train_step.eager(state, batch)`` takes a step
     eagerly on any device. Each step counts ``train.steps``, each replayed one
     ``train.graph_replays`` (``utils/profiling.py::count``). On a GPU the
-    network's stages and the glue between them are timed on the device
-    (``device_span``) in every step but the graph's warm-up, replayed or not,
-    and read into the counters ``device_us.*`` once the device has passed
-    them.
+    network's stages and the glue between them, the loss
+    (``unflow.dev.loss``), ``zero_grad`` and the backward pass
+    (``unflow.dev.backward``), and the gradient norm, the clip and Adam
+    (``unflow.dev.adam``) are timed on the device (``device_span``) in every
+    step but the graph's warm-up, replayed or not, and read into the counters
+    ``device_us.*`` once the device has passed them.
     """
     _check_parallel(cfg)
     t = cfg.train
@@ -360,7 +368,7 @@ def make_train_step(
                 # second argument is the first with each pair swapped, so the
                 # tower runs once.
                 stages = model(interleave(n1, n2), interleave(n2, n1), pair_flipped_im2=True)
-        with span("unflow.train.loss"):
+        with span("unflow.train.loss"), device_span("unflow.dev.loss", im1):
             if t.supervised:
                 loss, logs = supervised_loss(stages[-1], gt, mask)
             else:
@@ -385,10 +393,11 @@ def make_train_step(
                 logs = dict(zip(keys, summed[:-1].unbind(0)))
                 loss = summed[-1]
 
-        with span("unflow.train.backward"):
+        with span("unflow.train.backward"), device_span("unflow.dev.backward", im1):
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
-        with span("unflow.train.adam"):
+        # the step's last device span: it ends last
+        with span("unflow.train.adam"), device_span("unflow.dev.adam", im1):
             grads = [p.grad for group in optimizer.param_groups for p in group["params"]
                      if p.grad is not None]
             grad_norm = torch.linalg.vector_norm(

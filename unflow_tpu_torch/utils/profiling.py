@@ -31,6 +31,9 @@ reads each queued step once the device has passed its last event (a query,
 never a wait) into the counters ``device_us.<name>`` (integer microseconds,
 summed) and ``device_steps`` (the steps read). Outside a :func:`device_step`
 and on the CPU a device span is a shared no-op context.
+:func:`device_span_after_grad` starts a device span from a gradient hook on a
+tensor, on autograd's device thread, and ends it with a named span of the
+same step.
 """
 
 from __future__ import annotations
@@ -189,10 +192,22 @@ def reset_counts(names) -> None:
             _COUNTS.pop(name, None)
 
 
+class _Step(list):
+    """A step's device spans, in the order they end, and the spans started by
+    a gradient hook that wait, by the name of the span they end with, for it
+    to end."""
+
+    __slots__ = ("waiting",)
+
+    def __init__(self):
+        super().__init__()
+        self.waiting: dict[str, list] = {}
+
+
 class _DeviceSpan:
     __slots__ = ("name", "start", "end", "step")
 
-    def __init__(self, name: str, step: list):
+    def __init__(self, name: str, step: _Step):
         self.name = name
         self.step = step
         self.start = torch.cuda.Event(enable_timing=True, external=True)
@@ -204,9 +219,30 @@ class _DeviceSpan:
 
     def __exit__(self, *exc):
         self.end.record()
-        # in the order the spans end, so that a step's last one ends last
+        # in the order the spans end, so that a step's last one ends last; the
+        # hooked spans that end with this one go just before it
+        for hooked in self.step.waiting.pop(self.name, ()):
+            hooked.end = self.end
+            self.step.append(hooked)
         self.step.append(self)
         return False
+
+
+class _AfterGrad:
+    """A tensor's gradient hook that starts a device span once autograd has
+    computed the gradient. It runs where autograd runs the node that takes
+    the gradient: on the device's thread, on the stream of that node's
+    forward (the capture stream, inside a CUDA graph's capture)."""
+
+    __slots__ = ("span", "until")
+
+    def __init__(self, span: _DeviceSpan, until: str):
+        self.span = span
+        self.until = until
+
+    def __call__(self, grad):
+        self.span.start.record()
+        self.span.step.waiting.setdefault(self.until, []).append(self.span)
 
 
 def device_span(name: str, like: torch.Tensor):
@@ -217,6 +253,17 @@ def device_span(name: str, like: torch.Tensor):
     return _DeviceSpan(name, _DEVICE_OPEN)
 
 
+def device_span_after_grad(name: str, tensor: torch.Tensor, until: str) -> None:
+    """Time on the device, into the step that :func:`device_step` records,
+    from the moment autograd has computed ``tensor``'s gradient (a hook on
+    the tensor) to the end of the step's device span ``until``. The span is
+    read only if the hook ran before ``until`` ended. Nothing outside a
+    :func:`device_step`, on the CPU or where ``tensor`` takes no gradient."""
+    if _DEVICE_OPEN is None or not tensor.is_cuda or not tensor.requires_grad:
+        return
+    tensor.register_hook(_AfterGrad(_DeviceSpan(name, _DEVICE_OPEN), until))
+
+
 @contextlib.contextmanager
 def device_step(queue: bool = True):
     """Collect the device spans of the enclosed step; yields their list
@@ -224,7 +271,7 @@ def device_step(queue: bool = True):
     :func:`read_device_steps` when the block ends; a CUDA graph's capture
     keeps the list instead and queues it after each replay."""
     global _DEVICE_OPEN
-    outer, spans = _DEVICE_OPEN, []
+    outer, spans = _DEVICE_OPEN, _Step()
     _DEVICE_OPEN = spans
     try:
         yield spans
