@@ -38,7 +38,17 @@ result line:
                 as a ratio to the f32 forward's there (same FMAs, same bound).
                 Then the autograd Function over the three kernels against
                 autograd through the plain version, with a non-contiguous
-                cotangent.
+                cotangent. Then the fused loss (``ops/cuda/loss.py``, the six
+                kernels of ``csrc/loss.cu``) through ``unsupervised_loss``
+                against the composite terms on the same card tensors, at the
+                frames each training path hands it: 8x320x1152 (C, csS and
+                CSS), the held-out run's 8x128x256, the Sintel fine-tune's
+                8x384x768 and the affine pretraining's 8x512x768 with its
+                config's terms (photo, no census): every log within 1e-5
+                relative, both flow pyramids' gradients within 1e-4 relative
+                L2, four forward launches and two backward, none on the
+                composite path; its time forward and backward beside its
+                bound and the composite's.
   3. serving path -- ``unflow_tpu_torch.cli.infer`` with ``--random-init`` on two
                 375x1242 frames (configs/kitti_unsup_c.ini: FlowNetC, bf16), then
                 ``Evaluator.predict_batch`` at batch 4 in bf16 and in f32 (TF32
@@ -53,14 +63,16 @@ result line:
                 ``metrics.jsonl``; then one f32 step at batch 2, which must launch
                 the three f32 kernels; then two bf16 steps with ``corr_stride=4``,
                 a displacement grid the tensor-core kernels do not take, which
-                must launch the three ``*_simt`` twins instead. Then one train
+                must launch the three ``*_simt`` twins instead. Each run must
+                launch the six loss kernels once a step. Then one train
                 step through the kernels against the same step through the plain
-                correlation (same parameters, batch and seed, cuDNN held to its
-                deterministic algorithms), in bf16, in f32 and in bf16 with
+                correlation and the composite loss (same parameters, batch and
+                seed, cuDNN held to its deterministic algorithms), in bf16, in f32 and in bf16 with
                 ``corr_stride=4``: loss, grad_norm and the relative L2 of the
                 whole gradient must agree (2e-2 in bf16, 1e-4 in f32 with TF32
-                off: the correlation's summation order differs), and the step
-                must launch its three kernels once; the f32 step is also run
+                off: the correlation's and the loss's summation orders differ),
+                and the step must launch its three kernels and the six loss
+                kernels once; the f32 step is also run
                 twice through the plain correlation, as a control. Then one f32
                 step at batch 8 (TF32 off) after two warm-up steps, which must
                 launch each of the three f32 kernels once.
@@ -264,6 +276,11 @@ REPLACES = {
     "corr_fwd_bf16_simt": "unflow_tpu/ops/pallas/correlation_mxu.py:187",
     "corr_bwd_f1_bf16_simt": "unflow_tpu/ops/pallas/correlation_mxu.py:281",
     "corr_bwd_f2_bf16_simt": "unflow_tpu/ops/pallas/correlation_mxu.py:389",
+    # the fused loss, forward (loss_pyramid, loss_pixel, loss_stencil,
+    # loss_finish) and backward (loss_grad, loss_grad_add): one entry point
+    # each, timed as one; the JAX package leaves the loss to XLA
+    "unflow_loss_forward": "unflow_tpu/losses/unsupervised.py:166",
+    "unflow_loss_backward": "unflow_tpu/losses/unsupervised.py:166",
 }
 # the geometry each op's reported time is taken at: that of its main path
 # (for a ``*_simt`` twin the stride-4 case, the one that reaches it)
@@ -330,6 +347,21 @@ KERNEL_CASES = [
     ("middlebury_448x640", (1, 56, 80, 256), 20, 2),
     ("middlebury_512x640", (1, 64, 80, 256), 20, 2),
 ]
+
+
+# (case, config, batch, height, width): the frames each training path hands
+# the loss, with that path's terms
+LOSS_CASES = [
+    ("train", CONFIG, 8, 320, 1152),  # C, csS and CSS at KITTI's crop
+    ("heldout", CONFIG, 8, 128, 256),
+    ("sintel_train", SINTEL_CONFIG, 8, 384, 768),
+    ("affine", AFFINE_CONFIG, 8, 512, 768),  # photo, no census
+]
+LOSS_VALUE_RTOL, LOSS_GRAD_RTOL = 1e-5, 1e-4
+# fp32 operations per pixel, direction and census neighbour, counted from
+# csrc/loss.cu: census() 15 (two differences, two tau at 4, one difference,
+# the Hamming term at 3, the sum), census_grad() 25
+CENSUS_OPS = {"forward": 15, "backward": 25}
 
 
 def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -514,6 +546,138 @@ def check_function() -> None:
                 raise AssertionError(f"CorrelationFunction {which} disagrees with autograd")
 
 
+@contextlib.contextmanager
+def composite_loss():
+    """``unsupervised_loss`` through its composite terms, as on a CPU: for the
+    arm that a kernel is held against."""
+    from unflow_tpu_torch.losses import unsupervised
+
+    fused_spec = unsupervised.fused_spec
+    unsupervised.fused_spec = lambda *args, **kwargs: None
+    try:
+        yield
+    finally:
+        unsupervised.fused_spec = fused_spec
+
+
+def reset_all_launch_counts() -> None:
+    """Every hand-written kernel's launch counter to 0."""
+    from unflow_tpu_torch.utils import profiling
+
+    profiling.reset_counts(list(profiling.launch_counts()))
+
+
+def loss_bound_ms(batch: int, h: int, w: int, radii, which: str) -> tuple[float, str]:
+    """Least time of the fused loss's forward or backward over five levels.
+    Forward: the frames and both flow pyramids read once. Backward: the flows
+    and the per-pixel fields read, the pyramid of both frames read, the
+    gradients written. Against the census's operations at the FP32 cores'
+    peak (``CENSUS_OPS``)."""
+    levels = [batch * (h >> (2 + i)) * (w >> (2 + i)) for i in range(len(radii))]
+    pixels = sum(levels)
+    neighbours = 2 * sum(n * (2 * r + 1) ** 2 for n, r in zip(levels, radii))
+    if which == "forward":
+        floats = 2 * batch * 3 * h * w + 2 * 2 * pixels
+    else:  # flows 4, gradients 4, fields 2 x 4, pyramid 2 x 3 floats a pixel
+        floats = (4 + 4 + 8 + 6) * pixels
+    t_bytes = floats * 4 / HBM_BYTES_PER_S
+    t_ops = neighbours * CENSUS_OPS[which] / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_loss() -> dict[str, dict]:
+    """The fused loss against the composite terms on the same card tensors at
+    each of ``LOSS_CASES``; its launches, and its time beside its bound and
+    the composite's. Returns the kernel table's two entries, from the
+    ``train`` case."""
+    from unflow_tpu_torch.config import load_config
+    from unflow_tpu_torch.losses import unsupervised_loss
+    from unflow_tpu_torch.losses.unsupervised import LAYER_PATCH_DISTANCES
+    from unflow_tpu_torch.ops.cuda import loss as fused
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    report = {}
+    for case, config, batch, h, w in LOSS_CASES:
+        t = load_config(config).train
+        im1 = torch.rand(batch, h, w, 3, generator=gen, device="cuda")
+        # the second frame: the first moved by a few pixels, plus noise
+        im2 = (torch.roll(im1, (2, 3), (1, 2)) * 0.9
+               + 0.1 * torch.rand(batch, h, w, 3, generator=gen, device="cuda"))
+        im1, im2 = im1.permute(0, 3, 1, 2), im2.permute(0, 3, 1, 2)  # as the step hands them
+        # one stacked pyramid a level, forward flows in the even rows
+        flows = [(0.3 * torch.randn(2 * batch, 2, h >> (2 + i), w >> (2 + i), generator=gen,
+                                    device="cuda")).requires_grad_() for i in range(5)]
+
+        def loss():
+            return unsupervised_loss(
+                im1, im2, [f[0::2] for f in flows], [f[1::2] for f in flows],
+                weights=t.loss_weights(), mask_occlusion=t.mask_occlusion,
+                border_ratio=t.border_ratio)
+
+        def loss_and_grads():
+            total, logs = loss()
+            return logs, torch.autograd.grad(total, flows)
+
+        fused.reset_launch_counts()
+        total, logs = loss()
+        forward_launches = fused.launch_counts()
+        grads = torch.autograd.grad(total, flows)
+        launches = fused.launch_counts()
+        with composite_loss():
+            want_logs, want_grads = loss_and_grads()
+            if any(fused.launch_counts()[k] != n for k, n in launches.items()):
+                raise AssertionError(f"loss {case}: the composite path launched a fused kernel")
+            with torch.no_grad():
+                plain_ms = {"forward": median_ms(loss, runs=5, warmup=1)}
+            plain_ms["backward"] = median_ms(loss_and_grads, runs=5, warmup=1) - plain_ms["forward"]
+        with torch.no_grad():
+            ms = {"forward": median_ms(loss)}
+        ms["backward"] = median_ms(loss_and_grads) - ms["forward"]
+
+        if set(logs) != set(want_logs):
+            raise AssertionError(f"loss {case}: logs {sorted(logs)} against {sorted(want_logs)}")
+        value_err = max(abs(float(logs[k]) - float(v)) / max(abs(float(v)), 1e-30)
+                        for k, v in want_logs.items())
+        grad_err = {
+            d: float(torch.linalg.vector_norm(torch.cat([g[i::2].flatten() for g in grads])
+                                              - torch.cat([g[i::2].flatten() for g in want_grads]))
+                     / torch.linalg.vector_norm(torch.cat([g[i::2].flatten() for g in want_grads])))
+            for i, d in enumerate(("fw", "bw"))}
+        bounds = {which: loss_bound_ms(batch, h, w, LAYER_PATCH_DISTANCES, which)
+                  for which in ("forward", "backward")}
+        print(f"loss {case} {batch}x{h}x{w} ({config.name}, terms "
+              f"{sorted(k[:-len('/scale0')] for k in logs if k.endswith('/scale0'))}): "
+              f"largest relative value gap {value_err:.3e} (tol {LOSS_VALUE_RTOL}), gradients' "
+              f"relative L2 fw {grad_err['fw']:.3e} bw {grad_err['bw']:.3e} "
+              f"(tol {LOSS_GRAD_RTOL}); ms forward {ms['forward']:.4f} backward "
+              f"{ms['backward']:.4f} bound_ms {bounds['forward'][0]:.4f} ({bounds['forward'][1]}) "
+              f"and {bounds['backward'][0]:.4f} ({bounds['backward'][1]}), composite "
+              f"forward {plain_ms['forward']:.3f} backward {plain_ms['backward']:.3f} (eager); "
+              f"launches {launches}", flush=True)
+        if not all(abs(float(logs[k]) - float(v)) <= LOSS_VALUE_RTOL * abs(float(v)) + 1e-9
+                   for k, v in want_logs.items()):
+            raise AssertionError(f"loss {case}: the fused logs disagree with the composite's")
+        if not max(grad_err.values()) < LOSS_GRAD_RTOL:
+            raise AssertionError(f"loss {case}: the fused gradients disagree with the composite's")
+        if (forward_launches != {**dict.fromkeys(fused.FORWARD_KERNELS, 1),
+                                 **dict.fromkeys(fused.BACKWARD_KERNELS, 0)}
+                or launches != dict.fromkeys(fused.KERNELS, 1)):
+            raise AssertionError(f"loss {case}: launches {forward_launches} then {launches}")
+        if case == "train":
+            for which, kernels in (("forward", fused.FORWARD_KERNELS),
+                                   ("backward", fused.BACKWARD_KERNELS)):
+                name = f"unflow_loss_{which}"
+                report[name] = {
+                    "name": name, "route": "cuda", "source": "unflow_tpu_torch/csrc/loss.cu",
+                    "replaces": REPLACES[name], "kernels": list(kernels), "launches": 0,
+                    "max_rel_err": value_err if which == "forward" else max(grad_err.values()),
+                    "ms": ms[which], "plain_ms": plain_ms[which],
+                    "bound_ms": bounds[which][0], "bound_by": bounds[which][1],
+                    "library_ms": None, "shape": [batch, h, w],
+                }
+    return report
+
+
 def synthetic_frames(n: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     """Smooth random textures in [0, 1]; frame 2 is frame 1 shifted."""
     gen = torch.Generator().manual_seed(seed)
@@ -645,9 +809,12 @@ def run_train_cli(tmp: Path, dtype: str, steps: int, batch: int,
     """``cli.train`` in-process; returns the launch counts of the run, which
     must be ``steps`` for each of the three kernels that the dispatch picks
     for this dtype and displacement grid, and 0 for every other kernel.
-    ``corr_stride`` sets the config key of that name (the config's is 2)."""
+    ``corr_stride`` sets the config key of that name (the config's is 2).
+    Each of the six loss kernels must launch ``steps`` times too; their
+    counts are returned with the correlation's."""
     from unflow_tpu_torch.cli.train import main as train_main
     from unflow_tpu_torch.models import DTYPES
+    from unflow_tpu_torch.ops.cuda import loss as fused
     from unflow_tpu_torch.ops.cuda.correlation import (
         kernel_name,
         launch_counts,
@@ -658,6 +825,7 @@ def run_train_cli(tmp: Path, dtype: str, steps: int, batch: int,
     stride = corr_stride or cfg.train.corr_stride
     name = f"smoke_{dtype}_s{stride}"
     reset_launch_counts()
+    fused.reset_launch_counts()
     t = time.perf_counter()
     rc = train_main(["--config", str(tmp / CONFIG.name), "--ex", name,
                      "--set", f"compute_dtype={dtype}", "--set", f"batch_size={batch}",
@@ -665,6 +833,7 @@ def run_train_cli(tmp: Path, dtype: str, steps: int, batch: int,
                      "--set", f"num_iters={steps}", "--set", f"display_interval={min(4, steps)}"])
     torch.cuda.synchronize()
     counts = launch_counts()
+    loss_launches = fused.launch_counts()
     # the correlation sees FlowNetC's conv3 maps: 256 channels
     expected = {kernel_name(op, DTYPES[dtype], 256, cfg.train.max_displacement, stride)
                 for op in ("fwd", "bwd_f1", "bwd_f2")}
@@ -672,15 +841,19 @@ def run_train_cli(tmp: Path, dtype: str, steps: int, batch: int,
     metrics = cfg.experiment_dir(name) / "metrics.jsonl"
     records = [json.loads(line) for line in metrics.read_text().splitlines()]
     print(f"train path cli.train {dtype} 320x1152 batch {batch} corr_stride {stride}: rc {rc} "
-          f"steps {steps} launches {mine} {time.perf_counter() - t:.2f} s", flush=True)
+          f"steps {steps} launches {mine}, loss {loss_launches} {time.perf_counter() - t:.2f} s",
+          flush=True)
     if rc != 0 or set(mine) != expected or any(v != steps for v in mine.values()):
         raise AssertionError(f"cli.train {dtype} did not launch each kernel once per step: {counts}")
+    if loss_launches != dict.fromkeys(fused.KERNELS, steps):
+        raise AssertionError(f"cli.train {dtype} did not launch each loss kernel once per step: "
+                             f"{loss_launches}")
     last = records[-1]
     print(f"train path cli.train {dtype}: step {last['step']} loss {last['loss']:.5g} "
           f"grad_norm {last['grad_norm']:.5g}", flush=True)
     if last["step"] != steps or not all(np.isfinite(r["loss"]) for r in records):
         raise AssertionError(f"cli.train {dtype}: bad metrics.jsonl {records}")
-    return mine
+    return {**mine, **loss_launches}
 
 
 def host_batches(batch: int, count: int, supervised: str = ""):
@@ -705,13 +878,14 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
                    control: bool = False, supervised: str = "", remat: bool = False,
                    **overrides) -> dict[str, int]:
     """One train step through the kernels against the same step through the
-    plain correlation: same parameters (from ``seed``), batch and step seed,
-    cuDNN held to its deterministic algorithms (so that the two steps differ
-    by the correlation alone). With ``remat`` the step with remat is held
-    against the same step without it instead, both through the kernels. A
-    ``tolerance`` of 0 asks for equality. The steps through the kernels must
-    launch the three that the dispatch picks, once each (the forward twice
-    under remat: its recompute). A stack's gap is also printed per stage and
+    plain correlation and the composite loss: same parameters (from
+    ``seed``), batch and step seed, cuDNN held to its deterministic
+    algorithms (so that the two steps differ by the hand-written kernels
+    alone). With ``remat`` the step with remat is held against the same step
+    without it instead, both through the kernels. A ``tolerance`` of 0 asks
+    for equality. The steps through the kernels must launch the three that
+    the dispatch picks, once each (the forward twice under remat: its
+    recompute), and the fused loss's six once for each stage's loss. A stack's gap is also printed per stage and
     for its largest leaves; with ``control`` the step held against runs
     twice, and the gap between those two (what is left of the card's
     run-to-run spread: the float atomics of the gathers' and the resizes'
@@ -720,12 +894,10 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
     batch with ground truth of that kind. Returns the launches of the step
     under test."""
     from unflow_tpu_torch.models import DTYPES, build_model, init_params
-    from unflow_tpu_torch.ops.cuda.correlation import (
-        kernel_name,
-        launch_counts,
-        reset_launch_counts,
-    )
+    from unflow_tpu_torch.ops.cuda import loss as fused
+    from unflow_tpu_torch.ops.cuda.correlation import kernel_name
     from unflow_tpu_torch.train import Trainer
+    from unflow_tpu_torch.utils.profiling import launch_counts
 
     batches = host_batches(batch, 1, supervised)
     if supervised:
@@ -748,8 +920,9 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
         trainer = Trainer(cfg, tmp / f"twin_{cfg.train.flownet}_{dtype}_s{corr_stride}_{arm}"
                           f"{supervised}{cfg.train.mask_occlusion}", [], device="cuda",
                           params=params)
-        reset_launch_counts()
-        with deterministic_cudnn():
+        plain = arm_overrides["corr_impl"] == "torch"
+        reset_all_launch_counts()
+        with deterministic_cudnn(), composite_loss() if plain else contextlib.nullcontext():
             logs = {k: float(v) for k, v in trainer.train_step(batches[0]).items()}
             torch.cuda.synchronize()
         launched[arm] = {k: v for k, v in launch_counts().items() if v}
@@ -759,10 +932,15 @@ def run_train_twin(tmp: Path, dtype: str, batch: int, tolerance: float,
                  if p.grad is not None}
         results[arm] = (logs["loss"], logs["grad_norm"], grads)
         # every twin's correlation sees FlowNetC's conv3 maps: 256 channels
-        want[arm] = {} if arm_overrides["corr_impl"] == "torch" else {
+        want[arm] = {} if plain else {
             kernel_name(op, DTYPES[dtype], 256, cfg.train.max_displacement, corr_stride):
                 2 if op == "fwd" and arm_overrides.get("remat") else 1
             for op in ("fwd", "bwd_f1", "bwd_f2")}
+        # the fused loss once for each stage that takes a loss: the last one,
+        # or every one under train_all; none supervised or under disocc
+        losses = (0 if plain or cfg.train.supervised or cfg.train.mask_occlusion != "fb"
+                  else len(cfg.train.flownet) if cfg.train.train_all else 1)
+        want[arm].update(dict.fromkeys(fused.KERNELS, losses) if losses else {})
         del trainer
 
     def gaps(a, b):
@@ -2133,6 +2311,7 @@ def main() -> int:
 
     report = check_kernels()
     check_function()
+    report.update(check_loss())
     lap("build and kernels")
 
     torch.backends.cudnn.allow_tf32 = False  # float32 means float32 in this check
@@ -2152,6 +2331,12 @@ def main() -> int:
                 if "bwd" in name:
                     report[name]["launches"] = count
                     report[name]["main_path"] = f"cli.train, {steps} step(s)"
+                elif dtype == "bfloat16" and name.startswith("loss_"):
+                    # the loss's entry points: each of their kernels once a step
+                    entry = report["unflow_loss_backward" if name.startswith("loss_grad")
+                                   else "unflow_loss_forward"]
+                    entry["launches"] = count
+                    entry["main_path"] = f"cli.train, {steps} step(s)"
         # corr_stride=4 is a grid the tensor-core kernels do not take: the same
         # entry point then goes through their FP32-core twins
         for name, count in run_train_cli(tmp, "bfloat16", 2, 8, corr_stride=4).items():

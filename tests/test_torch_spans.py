@@ -3,7 +3,8 @@ off, a span records nothing; under ``torch.profiler`` it is an annotation on
 the profiler's timeline and a record on the same clock; self time is total
 less the children's; the train step, the Loader and ``Evaluator.predict``
 emit their phases; the buffer keeps its cap; the correlation's launch
-counts are a view of the counter registry."""
+counts are a view of the counter registry, whose launch counters are
+tagged."""
 
 import itertools
 import json
@@ -221,6 +222,21 @@ def test_launch_counts_are_a_view_of_the_counter_registry():
     reset_launch_counts()
     assert launch_counts()["corr_fwd_f32"] == 0
     assert profiling.counts()["unflow.test.other"] >= 1
+
+
+def test_launch_counters_are_the_registry_counters_tagged_as_launches():
+    """What ``StepGraph`` and ``ForwardGraphs`` add back on a replay: every
+    counter :func:`profiling.count_launch` made, and no other."""
+    profiling.reset_counts(["unflow.test.kernel"])
+    count("unflow.test.not_a_kernel")
+    assert "unflow.test.kernel" not in profiling.launch_counts()
+    profiling.count_launch("unflow.test.kernel")
+    profiling.count_launch("unflow.test.kernel")
+    launches = profiling.launch_counts()
+    assert launches["unflow.test.kernel"] == 2 and "unflow.test.not_a_kernel" not in launches
+    assert count("unflow.test.kernel", -2) == 0  # a capture's launches taken back
+    profiling.reset_counts(["unflow.test.kernel"])
+    assert profiling.launch_counts()["unflow.test.kernel"] == 0  # still a launch counter
 
 
 def test_counters_and_span_totals_lose_no_update_across_threads():

@@ -32,9 +32,8 @@ from unflow_tpu_torch.device import resolve_device
 from unflow_tpu_torch.eval.flow_viz import flow_error_image, flow_to_color
 from unflow_tpu_torch.eval.metrics import flow_error_avg, outlier_fraction
 from unflow_tpu_torch.models import DTYPES, FlowNetStack, build_model, full_res_flow
-from unflow_tpu_torch.ops.cuda.correlation import launch_counts
 from unflow_tpu_torch.train.checkpoint import restore_params
-from unflow_tpu_torch.utils.profiling import count, span
+from unflow_tpu_torch.utils.profiling import count, launch_counts, span
 
 
 def predict_flow(
@@ -79,10 +78,11 @@ class ForwardGraphs:
     the strides of the first input it captured) and returns the graph's own
     output, which the next replay of that key overwrites. The graph reads
     the parameters of ``forward``'s module where they were at the capture.
-    The correlation kernels' launch counters (``launch_counts()``) count on
-    the host at launch, which a replay skips: the launches counted while the
-    graph was captured are taken back, and each replay adds them, so that
-    the counters read a forward's launches on either path. Each replay adds
+    The hand-written kernels' launch counters (the registry's
+    ``launch_counts()``) count on the host at launch, which a replay skips:
+    the launches counted while the graph was captured are taken back, and
+    each replay adds them, so that the counters read a forward's launches on
+    either path. Each replay adds
     one to the counter ``infer.graph_replays``.
 
     The graphs go when this object goes, so ``forward`` must hold nothing
@@ -133,7 +133,8 @@ class ForwardGraphs:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=self._stream):
             out = self._forward(buffer)
-        launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+        launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()
+                    if n != before.get(k, 0)}
         for name, n in launches.items():  # a capture launches nothing: its replay counts
             count(name, -n)
         return graph, buffer, out, launches

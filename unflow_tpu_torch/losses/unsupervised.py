@@ -11,6 +11,11 @@ Under W-sharding every image, flow and mask here is a W-slab, and every term
 this rank's part of the global mean (``losses/terms.py``); the pyramid's
 average pooling stays local.
 
+On a GPU the loss of the paper's terms runs as fused CUDA kernels
+(``ops/cuda/loss.py``: four launches forward, two backward, over every
+scale), chosen by :func:`fused_spec` from what the call sees; everywhere
+else, and for any other term or masking, the composite terms below run.
+
 Flow units (see ``models/flownet.py``): every pyramid level predicts flow in
 quarter-resolution pixels divided by ``FLOW_SCALE``, so the flow in pixels of
 level i (resolution 1/(4*2^i)) is ``pred_i * FLOW_SCALE / 2^i``.
@@ -35,6 +40,7 @@ from unflow_tpu_torch.losses.terms import (
     ternary_loss,
 )
 from unflow_tpu_torch.models.flownet import FLOW_SCALE
+from unflow_tpu_torch.ops.cuda import loss as fused
 from unflow_tpu_torch.ops.downsample import downsample
 from unflow_tpu_torch.ops.warp import backward_warp, forward_warp
 from unflow_tpu_torch.parallel import spatial
@@ -143,6 +149,39 @@ def compute_losses(
     return losses
 
 
+def _border(h: int, w: int, border_ratio: float) -> int:
+    """The border mask's distance at an unsharded level (0: no mask)."""
+    dist = int(min(h, w) * border_ratio)
+    return fused.border_distance(h, w, dist) if dist > 0 else 0
+
+
+def fused_spec(im1, im2, flows_fw, flows_bw, weights: dict, mask_occlusion: str,
+               border_ratio: float) -> fused.Spec | None:
+    """What the fused kernels need for this call, or None where the composite
+    terms run: on a CPU, inside a ``SpatialContext`` (the terms there take
+    halos), with other masking than ``fb``, with an active term the kernels
+    do not compute, with frames that take a gradient, or off float32."""
+    tensors = [im1, im2, *flows_fw, *flows_bw]
+    if (
+        not im1.is_cuda
+        or spatial.current() is not None
+        or mask_occlusion != "fb"
+        or any(weights.get(key, 0.0) for key in LOSS_KEYS if key not in fused.TERMS)
+        or im1.requires_grad
+        or im2.requires_grad
+        or any(t.dtype != torch.float32 for t in tensors)
+    ):
+        return None
+    shapes = [f.shape[-2:] for f in flows_fw]
+    return fused.Spec(
+        term_weights=tuple(float(weights.get(key, 0.0)) for key in fused.TERMS),
+        layer_weights=LAYER_WEIGHTS[: len(shapes)],
+        scales=tuple(FLOW_SCALE / 2**i for i in range(len(shapes))),
+        radii=LAYER_PATCH_DISTANCES[: len(shapes)],
+        borders=tuple(_border(h, w, border_ratio) for h, w in shapes),
+    )
+
+
 def unsupervised_loss(
     im1: torch.Tensor,
     im2: torch.Tensor,
@@ -161,6 +200,18 @@ def unsupervised_loss(
     (``"<term>/scale<i>"`` and ``"total"``) for logging.
     """
     weights = {**DEFAULT_WEIGHTS, **(weights or {})}
+    spec = fused_spec(im1, im2, flows_fw, flows_bw, weights, mask_occlusion, border_ratio)
+    if spec is not None:
+        values = fused.FusedLoss.apply(spec, im1, im2, *flows_fw, *flows_bw)
+        logs = {
+            f"{key}/scale{i}": values[len(fused.TERMS) * i + t]
+            for i in range(len(flows_fw))
+            for t, key in enumerate(fused.TERMS)
+            if spec.term_weights[t]
+        }
+        logs["total"] = values[-1]
+        return values[-1], logs
+
     total = torch.zeros((), dtype=torch.float32, device=im1.device)
     logs: dict[str, torch.Tensor] = {}
 

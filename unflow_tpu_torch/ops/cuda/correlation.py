@@ -24,7 +24,7 @@ error.
 
 :class:`CorrelationFunction` takes the place of the ``custom_vjp``
 ``correlation_pallas``. Each launch adds one to its kernel's counter in
-the port's registry (``utils/profiling.py::count``), which
+the port's registry (``utils/profiling.py::count_launch``), which
 :func:`launch_counts` reads, so a run can show that its path went through
 the kernels. CUDA tensors go through a kernel or the call raises; only CPU
 tensors take the plain versions of :mod:`unflow_tpu_torch.ops.correlation`.
@@ -179,7 +179,7 @@ def _launch(
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    profiling.count(name)
+    profiling.count_launch(name)
     return out
 
 

@@ -23,10 +23,10 @@ from typing import Callable
 
 import torch
 
-from unflow_tpu_torch.ops.cuda.correlation import launch_counts
 from unflow_tpu_torch.utils.profiling import (
     count,
     device_step,
+    launch_counts,
     queue_device_step,
     read_device_steps,
     span,
@@ -53,10 +53,11 @@ class StepGraph:
     A replayed step (the span ``unflow.train.replay``: the copies into the
     input buffers, the launch and the copy out) returns a copy of the graph's
     logs (one device copy), so that the logs of an earlier step keep their
-    values. The correlation kernels' launch counters (``launch_counts()``)
-    count on the host at launch, which a replay skips: the launches counted
-    while the graph was captured are taken back, and each replay adds them,
-    so that the counters read a step's launches on either path.
+    values. The hand-written kernels' launch counters (the registry's
+    ``launch_counts()``) count on the host at launch, which a replay skips:
+    the launches counted while the graph was captured are taken back, and
+    each replay adds them, so that the counters read a step's launches on
+    either path.
 
     The device spans of a step (``utils/profiling.py::device_span``) are
     queued by each eager step but the warm-up; the capture keeps the ones it
@@ -115,7 +116,8 @@ class StepGraph:
             self._out = torch.stack([logs[k].float() for k in self._keys])
         self._graph = graph
         self._spans = spans
-        self._launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+        self._launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()
+                          if n != before.get(k, 0)}
         for name, n in self._launches.items():  # a capture launches nothing: its replay counts
             count(name, -n)
 

@@ -18,9 +18,13 @@ profile active it costs one flag read and returns a shared no-op context.
 less the time its children on the same thread cover).
 
 :func:`count` adds to a registry of integer counters that is always on: the
-correlation kernels' launches (``ops/cuda/correlation.py``), the Loader's
-gets and the requests, the requests whose frames were padded and the copied
-bytes of ``Evaluator.predict_batch``.
+Loader's gets and the requests, the requests whose frames were padded and the
+copied bytes of ``Evaluator.predict_batch``. :func:`count_launch` counts a
+hand-written kernel's launch there (``ops/cuda/correlation.py``,
+``ops/cuda/loss.py``) and tags the counter as a launch counter, which
+:func:`launch_counts` reads: a CUDA graph's replay skips the host's count,
+so ``StepGraph`` and ``ForwardGraphs`` add a capture's launches back from it
+without knowing which kernels there are.
 
 :func:`device_span` times a region of a train step on the card: a pair of
 CUDA timing events recorded on the current stream before and after it. The
@@ -50,6 +54,7 @@ from torch.autograd import profiler as _profiler
 SPAN_CAP = 100_000
 
 _COUNTS: dict[str, int] = {}
+_LAUNCHES: set[str] = set()  # the counters that count a kernel's launches
 _RECORDS: list[tuple] = []  # (name, thread, start_ns, end_ns, parent, unit)
 _TOTALS: dict[str, list[int]] = {}  # name -> [count, total ns, self ns]
 _LOCK = threading.Lock()
@@ -179,6 +184,20 @@ def count(name: str, n: int = 1) -> int:
     with _LOCK:
         value = _COUNTS[name] = _COUNTS.get(name, 0) + n
     return value
+
+
+def count_launch(name: str) -> None:
+    """Count a launch of the hand-written kernel ``name``."""
+    with _LOCK:
+        _LAUNCHES.add(name)
+        _COUNTS[name] = _COUNTS.get(name, 0) + 1
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel counted by :func:`count_launch`: its launches since its
+    counter was last reset."""
+    with _LOCK:
+        return {name: _COUNTS.get(name, 0) for name in _LAUNCHES}
 
 
 def counts() -> dict[str, int]:
